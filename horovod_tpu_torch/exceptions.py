@@ -1,0 +1,58 @@
+"""Framework exceptions, with the names of ``horovod_tpu/exceptions.py`` so
+that user code catches the same types under either package."""
+
+from __future__ import annotations
+
+
+class HorovodInternalError(RuntimeError):
+    """A collective routine failed mid-flight (in elastic mode this triggers
+    a state restore and re-initialization instead of aborting the job)."""
+
+
+class PeerFailureError(HorovodInternalError):
+    """A peer rank was declared dead, naming the tensors it still owed."""
+
+    def __init__(self, rank: int, reason: str, owed_tensors=()):
+        self.rank = rank
+        self.reason = reason
+        self.owed_tensors = tuple(owed_tensors)
+        owed = (f"; undelivered tensors: {list(self.owed_tensors)}"
+                if self.owed_tensors else "")
+        super().__init__(f"peer rank {rank} failed: {reason}{owed}")
+
+
+class ResponseCacheJoinError(HorovodInternalError):
+    """Locally served collectives raced a peer's JOIN and cannot pair."""
+
+    def __init__(self, joining_rank: int, served_batches: int):
+        self.joining_rank = joining_rank
+        self.served_batches = served_batches
+        who = (f"rank {joining_rank}" if joining_rank >= 0
+               else "an unidentified rank")
+        super().__init__(
+            f"coordinator ResponseCache served {served_batches} batch(es) "
+            f"locally while {who}'s JOIN was in flight")
+
+
+class QosAdmissionError(RuntimeError):
+    """An async submission was shed by its tenant's QoS admission control.
+    Not a :class:`HorovodInternalError`: shedding is flow control."""
+
+    def __init__(self, tenant: str, nbytes: int, pending: int, quota: int):
+        self.tenant = tenant
+        self.nbytes = int(nbytes)
+        self.pending = int(pending)
+        self.quota = int(quota)
+        super().__init__(
+            f"tenant {tenant!r}: submission of {nbytes} B shed by QoS "
+            f"admission control ({pending} B already pending, quota "
+            f"{quota} B)")
+
+
+class HostsUpdatedInterrupt(RuntimeError):
+    """The set of available hosts changed; ``skip_sync`` is True when hosts
+    were only removed."""
+
+    def __init__(self, skip_sync: bool = False):
+        super().__init__("hosts updated")
+        self.skip_sync = skip_sync
