@@ -136,18 +136,52 @@ def _block_inputs(g, dev, dtype, bh, sq, sk, d, qpos0, kpos0, causal):
     return q, k, v, carries, lse, dout, D
 
 
-def _fwd_err(got, want):
-    """Max abs error of the normalized output acc/l and of lse = m + log l,
-    the values the model consumes."""
+def _row_rel_err(got, want) -> float:
+    """Largest error of one row (a query's or a key's d-vector) relative to
+    that row's norm in the plain result, so that a tile of the grid whose
+    values are small cannot be wrong unseen."""
+    diff = torch.linalg.vector_norm(got - want, dim=-1)
+    return (diff / torch.linalg.vector_norm(want, dim=-1).clamp_min(1e-30)
+            ).max().item()
+
+
+def _fwd_errs(got, want) -> dict:
+    """Errors of the values the model consumes: the normalized output
+    acc / l (max abs and per row relative) and lse = m + log l (max abs)."""
     (m1, l1, a1), (m2, l2, a2) = got, want
     o1, o2 = a1 / l1.clamp_min(1e-30), a2 / l2.clamp_min(1e-30)
     lse1 = m1 + torch.log(l1.clamp_min(1e-30))
     lse2 = m2 + torch.log(l2.clamp_min(1e-30))
-    return max((o1 - o2).abs().max().item(), (lse1 - lse2).abs().max().item())
+    return {"out_abs": (o1 - o2).abs().max().item(),
+            "out_row_rel": _row_rel_err(o1, o2),
+            "lse_abs": (lse1 - lse2).abs().max().item()}
+
+
+def _grad_errs(got, want) -> dict:
+    return {"abs": max((x - y).abs().max().item()
+                       for x, y in zip(got, want)),
+            "row_rel": max(_row_rel_err(x, y) for x, y in zip(got, want))}
 
 
 def _max_err(got, want):
     return max((x - y).abs().max().item() for x, y in zip(got, want))
+
+
+# Limits at the training shape (bh 64, s 2048, d 64, bf16, causal), each set
+# from the error an H100 run of the kernels showed (chip_smoke.py, H100 80GB
+# HBM3 at 700 W): K1 rounds p to bf16 against its running row max and the
+# plain version against the block's max, so the two differ by bf16 rounding
+# of p; K2 and K3 round ds at the same point as their plain versions and
+# came out bitwise equal. The row limits are relative to each query's or
+# key's own row, so a kernel wrong on any tile fails however small that
+# tile's values are.
+TRAINING_LIMITS = {
+    "flash_fwd": {"out_abs": 5e-3,       # measured 1.57e-3
+                  "out_row_rel": 1e-2,   # measured 3.45e-3
+                  "lse_abs": 1e-4},      # measured 9.5e-7
+    "flash_bwd_dq": {"row_rel": 1e-3},   # measured 0 (bitwise)
+    "flash_bwd_dkv": {"row_rel": 1e-3},  # measured 0 (bitwise)
+}
 
 
 def phase_kernels(dev):
@@ -180,23 +214,22 @@ def phase_kernels(dev):
     args = (q, k, v, lse, dout, D, 0, 0, True)
     fwd_k = flash.block_attend(q, k, v, 0, 0, True, *carries)
     fwd_p = flash.attend_plain(q, k, v, 0, 0, True, *carries)
-    errs = {"flash_fwd": _fwd_err(fwd_k, fwd_p)}
-    dq_p = flash.plain_bwd_dq(*args)
-    errs["flash_bwd_dq"] = _max_err([flash._launch_bwd_dq(*args)], [dq_p])
-    scale = {"flash_fwd": 1.0, "flash_bwd_dq": dq_p.abs().max().item()}
-    del dq_p
-    dkv_p = flash.plain_bwd_dkv(*args)
-    errs["flash_bwd_dkv"] = _max_err(flash._launch_bwd_dkv(*args), dkv_p)
-    scale["flash_bwd_dkv"] = max(t.abs().max().item() for t in dkv_p)
-    del dkv_p, fwd_k, fwd_p
+    errs = {"flash_fwd": _fwd_errs(fwd_k, fwd_p)}
+    del fwd_k, fwd_p
+    errs["flash_bwd_dq"] = _grad_errs([flash._launch_bwd_dq(*args)],
+                                      [flash.plain_bwd_dq(*args)])
+    errs["flash_bwd_dkv"] = _grad_errs(flash._launch_bwd_dkv(*args),
+                                       flash.plain_bwd_dkv(*args))
     torch.cuda.synchronize()
-    # bf16 inputs, p and ds rounded to bf16 at other running maxima:
-    # 2e-2 of the output's scale (normalized outputs are O(1))
-    tol = {n: 2e-2 * scale[n] for n in errs}
-    for n in errs:
-        print(f"[kernels] {n} bh={bh} s={s} d={d} bf16 causal: max abs err "
-              f"{errs[n]:.4g} (tolerance {tol[n]:.4g})")
-        require(errs[n] <= tol[n], f"{n} disagrees with its plain version")
+    failed = []
+    for n, e in errs.items():
+        lim = TRAINING_LIMITS[n]
+        print(f"[kernels] {n} bh={bh} s={s} d={d} bf16 causal: " + ", ".join(
+            f"{key} {e[key]:.4g}" + (f" (limit {lim[key]:g})" if key in lim
+                                     else "") for key in e))
+        failed += [f"{n} {key}" for key in lim if not e[key] <= lim[key]]
+    require(not failed, f"kernels disagree with their plain versions: "
+            f"{failed}")
 
     times = {
         "flash_fwd": (lambda: flash._launch_fwd(q, k, v, 0, 0, True,
@@ -251,7 +284,8 @@ def phase_kernels(dev):
         rows.append({
             "name": n, "route": "cuda", "source": "horovod_tpu_torch/" + src,
             "replaces": replaces, "launches": None,
-            "max_abs_err": errs[n], "tolerance": tol[n],
+            "max_abs_err": errs[n].get("out_abs", errs[n].get("abs")),
+            "errors": errs[n], "limits": TRAINING_LIMITS[n],
             "awkward_max_abs_err": awkward_err[
                 "fwd" if n == "flash_fwd" else "bwd"],
             "awkward_tolerance": awkward_tol,

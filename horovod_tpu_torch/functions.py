@@ -10,31 +10,26 @@ from __future__ import annotations
 import torch
 
 from .ops import collectives
-from .process_sets import ProcessSet
 
 
-def _broadcast_in_place(tensors: list, root_rank: int,
-                        process_set: ProcessSet | None) -> None:
-    synced = collectives.grouped_broadcast(tensors, root_rank,
-                                           process_set=process_set)
+def _broadcast_in_place(tensors: list, root_rank: int) -> None:
+    synced = collectives.grouped_broadcast(tensors, root_rank)
     with torch.no_grad():
         for t, s in zip(tensors, synced):
             t.copy_(s)
 
 
-def broadcast_parameters(params: dict, root_rank: int = 0,
-                         process_set: ProcessSet | None = None):
+def broadcast_parameters(params: dict, root_rank: int = 0):
     """Broadcast a module's ``state_dict()`` or a dict of tensors from
     ``root_rank``, in place, in the order of the sorted keys. Returns
     ``params``."""
     tensors = [params[k] for k in sorted(params)
                if isinstance(params[k], torch.Tensor)]
-    _broadcast_in_place(tensors, root_rank, process_set)
+    _broadcast_in_place(tensors, root_rank)
     return params
 
 
-def broadcast_optimizer_state(optimizer, root_rank: int = 0,
-                              process_set: ProcessSet | None = None):
+def broadcast_optimizer_state(optimizer, root_rank: int = 0):
     """Broadcast a ``torch.optim.Optimizer``'s state tensors from
     ``root_rank``, in place. Every rank must hold state of the same
     structure (for example, after the same number of steps)."""
@@ -45,5 +40,5 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0,
             state = opt.state.get(p, {})
             tensors.extend(state[k] for k in sorted(state)
                            if isinstance(state[k], torch.Tensor))
-    _broadcast_in_place(tensors, root_rank, process_set)
+    _broadcast_in_place(tensors, root_rank)
     return optimizer

@@ -7,6 +7,10 @@ Attention is ``"full"`` (plain PyTorch) or ``"ulysses"`` (the flash kernels,
 through :func:`horovod_tpu_torch.parallel.sequence.ulysses_attention` over a
 sequence group of one rank). :func:`from_flax_params` carries the JAX
 package's weights across.
+
+Every module is built on ``device`` when one is given, else on
+:func:`horovod_tpu_torch.runtime.default_device`: the device of ``init()``'s
+world, or the current card. Pass ``device="cpu"`` for a model on the host.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import runtime
 from ..parallel.sequence import ulysses_attention
 
 RING_SCHEDULES = {"ring": "contiguous", "ring_zigzag": "zigzag"}
@@ -56,7 +61,8 @@ class Dense(nn.Linear):
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype, device=None):
         super().__init__(in_features, out_features, bias=False,
-                         device=device, dtype=torch.float32)
+                         device=runtime.default_device(device),
+                         dtype=torch.float32)
         self.compute_dtype = dtype
 
     def forward(self, x):
@@ -69,7 +75,8 @@ class LayerNorm(nn.LayerNorm):
     ``dtype``."""
 
     def __init__(self, d: int, dtype: torch.dtype, device=None):
-        super().__init__(d, eps=1e-6, device=device, dtype=torch.float32)
+        super().__init__(d, eps=1e-6, device=runtime.default_device(device),
+                         dtype=torch.float32)
         self.compute_dtype = dtype
 
     def forward(self, x):
@@ -85,6 +92,7 @@ class Attention(nn.Module):
                 f"attn_mode={cfg.attn_mode!r} is not ported yet (ROADMAP.md "
                 "queue A, item A7)")
         self.cfg = cfg
+        device = runtime.default_device(device)
         self.head_dim = cfg.d_model // cfg.num_heads
         inner = cfg.num_heads * self.head_dim
         self.q = Dense(cfg.d_model, inner, cfg.dtype, device)
@@ -115,6 +123,7 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
+        device = runtime.default_device(device)
         self.wi = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, device)
         self.wo = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, device)
 
@@ -129,6 +138,7 @@ class Block(nn.Module):
             raise NotImplementedError(
                 "moe_experts > 0 is not ported yet (ROADMAP.md queue A, "
                 "item A9)")
+        device = runtime.default_device(device)
         self.ln1 = LayerNorm(cfg.d_model, cfg.dtype, device)
         self.attn = Attention(cfg, device)
         self.ln2 = LayerNorm(cfg.d_model, cfg.dtype, device)
@@ -145,6 +155,7 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        device = runtime.default_device(device)
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device)
         self.pos_embed = nn.Embedding(cfg.max_seq_len, cfg.d_model,
                                       device=device)

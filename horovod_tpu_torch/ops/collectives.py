@@ -5,7 +5,8 @@ Tensors are this rank's own: a collective takes one tensor per rank and
 returns a new tensor. Grouped calls fuse their tensors into one flat wire
 buffer per wire dtype, with the bucketing rule of the JAX package
 (:func:`_fusion_buckets`), and issue one ``torch.distributed`` collective per
-buffer (NCCL on the card, gloo on the host).
+buffer (NCCL on the card, gloo on the host), over the whole world: process
+sets over a subset of ranks are ROADMAP item A16.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
-from ..process_sets import ProcessSet, _resolve
+from .. import runtime
 from ..utils import envs
 from .compression import NoneCompressor
 from .reduce_ops import ReduceOp, handle_average
@@ -117,7 +118,6 @@ class Handle:
 
 def grouped_allreduce_async(tensors: Sequence[torch.Tensor], *,
                             op: ReduceOp = ReduceOp.AVERAGE,
-                            process_set: ProcessSet | None = None,
                             prescale_factor: float = 1.0,
                             postscale_factor: float = 1.0,
                             compression=None, name: str | None = None
@@ -130,7 +130,6 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor], *,
     tensors = list(tensors)
     if not tensors:
         return Handle(result=[])
-    pset = _resolve(process_set)
     for t in tensors:
         _check_op_dtype(op, t.dtype)
     if op == ReduceOp.ADASUM:
@@ -141,7 +140,7 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor], *,
         raise NotImplementedError(
             "only Compression.none/fp16/bf16 are ported; a compressor with "
             "its own wire format is not")
-    lowered, post = handle_average(op, pset.size(), postscale_factor)
+    lowered, post = handle_average(op, runtime.size(), postscale_factor)
     wire = [_wire_dtype_of(t, compression) for t in tensors]
     bufs, metas = _fuse_by_dtype(tensors, wire)
     works = []
@@ -149,7 +148,7 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor], *,
         if prescale_factor != 1.0:
             buf.mul_(prescale_factor)
         works.append(dist.all_reduce(buf, op=_DIST_OPS[lowered],
-                                     group=pset.group, async_op=True))
+                                     async_op=True))
 
     def finish():
         if post != 1.0:
@@ -172,7 +171,6 @@ def allreduce(tensor: torch.Tensor, **kw) -> torch.Tensor:
 
 
 def grouped_broadcast(tensors: Sequence[torch.Tensor], root_rank: int, *,
-                      process_set: ProcessSet | None = None,
                       name: str | None = None) -> list:
     """Broadcast a tensor list from ``root_rank``, fused into one wire
     buffer per dtype. Returns new tensors."""
@@ -180,13 +178,12 @@ def grouped_broadcast(tensors: Sequence[torch.Tensor], root_rank: int, *,
     tensors = list(tensors)
     if not tensors:
         return []
-    pset = _resolve(process_set)
-    if root_rank not in pset.ranks:
+    if not 0 <= root_rank < runtime.size():
         raise ValueError(
-            f"root_rank {root_rank} not in process set {pset.ranks}")
+            f"root_rank {root_rank} not in the world of {runtime.size()}")
     bufs, metas = _fuse_by_dtype(tensors)
     for buf in bufs:
-        dist.broadcast(buf, src=root_rank, group=pset.group)
+        dist.broadcast(buf, src=root_rank)
     return _split_fused(bufs, metas, len(tensors))
 
 
@@ -195,6 +192,6 @@ def broadcast(tensor: torch.Tensor, root_rank: int, **kw) -> torch.Tensor:
     return grouped_broadcast([tensor], root_rank, **kw)[0]
 
 
-def barrier(*, process_set: ProcessSet | None = None) -> None:
+def barrier() -> None:
     """Block until every rank reaches the barrier."""
-    dist.barrier(group=_resolve(process_set).group)
+    dist.barrier()

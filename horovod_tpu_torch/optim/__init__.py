@@ -16,7 +16,6 @@ import torch
 from ..ops import collectives
 from ..ops.compression import Compression, Compressor
 from ..ops.reduce_ops import ReduceOp
-from ..process_sets import ProcessSet
 from ..utils import envs
 
 
@@ -49,13 +48,11 @@ class DistributedOptimizer:
     def __init__(self, optimizer: torch.optim.Optimizer, *,
                  op: ReduceOp = ReduceOp.AVERAGE,
                  compression: type[Compressor] = Compression.none,
-                 prescale_factor: float = 1.0, postscale_factor: float = 1.0,
-                 process_set: ProcessSet | None = None):
+                 prescale_factor: float = 1.0, postscale_factor: float = 1.0):
         self.optimizer = optimizer
         self._sync_kw = dict(op=op, compression=compression,
                              prescale_factor=prescale_factor,
-                             postscale_factor=postscale_factor,
-                             process_set=process_set)
+                             postscale_factor=postscale_factor)
 
     def __getattr__(self, name):
         if name == "optimizer":  # not set yet: no recursion

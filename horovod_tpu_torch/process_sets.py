@@ -1,8 +1,8 @@
 """Process sets: the global set only.
 
-The port of ``horovod_tpu/process_sets.py``. Collectives run over
-:data:`global_process_set`, whose group is ``torch.distributed``'s default
-group. Sets over a subset of ranks are ROADMAP item A16.
+The port of ``horovod_tpu/process_sets.py``. Collectives run over the whole
+world, :data:`global_process_set`, and take no ``process_set`` argument
+yet: sets over a subset of ranks are ROADMAP item A16.
 """
 
 from __future__ import annotations
@@ -14,7 +14,6 @@ class ProcessSet:
     """The set of all ranks (reference ``horovod.ProcessSet``)."""
 
     process_set_id = 0
-    group = None  # torch.distributed's default (world) group
 
     @property
     def ranks(self) -> list[int]:
@@ -31,11 +30,3 @@ def add_process_set(ranks) -> ProcessSet:
     raise NotImplementedError(
         "process sets over a subset of ranks are not ported yet "
         "(ROADMAP.md queue A, item A16)")
-
-
-def _resolve(process_set: ProcessSet | None) -> ProcessSet:
-    if process_set is None or process_set is global_process_set:
-        return global_process_set
-    raise NotImplementedError(
-        "only the global process set is ported (ROADMAP.md queue A, "
-        "item A16)")

@@ -4,15 +4,15 @@ The port of ``horovod_tpu/runtime.py``: one process per card, joined by
 ``torch.distributed`` (NCCL on CUDA, gloo when the caller asks for the CPU).
 The world comes from the launcher's standard environment: ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` and
-``MASTER_PORT``. A process started without them is a world of one, on a free
-local port.
+``MASTER_PORT``. A process started without them is a world of one, whose
+rendezvous store listens on a port the OS picks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
-import socket
 
 import torch
 import torch.distributed as dist
@@ -33,12 +33,6 @@ class _RuntimeState:
 
 
 _state: _RuntimeState | None = None
-
-
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def init(device: str | torch.device | None = None) -> None:
@@ -65,16 +59,20 @@ def init(device: str | torch.device | None = None) -> None:
         raise ValueError(f"init(): unsupported device {device}")
     owns = False
     if not dist.is_initialized():
+        backend = "nccl" if device.type == "cuda" else "gloo"
         if "MASTER_ADDR" in env and "MASTER_PORT" in env:
-            init_method = "env://"
+            dist.init_process_group(backend, init_method="env://",
+                                    rank=rank, world_size=size)
         elif size == 1:
-            init_method = f"tcp://127.0.0.1:{_free_port()}"
+            # the store binds port 0 itself: no window for another process
+            # to take a port picked in advance
+            store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True,
+                                  timeout=datetime.timedelta(seconds=60))
+            dist.init_process_group(backend, store=store, rank=0,
+                                    world_size=1)
         else:
             raise RuntimeError(
                 f"init(): WORLD_SIZE={size} needs MASTER_ADDR and MASTER_PORT")
-        backend = "nccl" if device.type == "cuda" else "gloo"
-        dist.init_process_group(backend, init_method=init_method,
-                                rank=rank, world_size=size)
         owns = True
     _state = _RuntimeState(device=device, rank=dist.get_rank(),
                            size=dist.get_world_size(), local_rank=local_rank,
@@ -105,6 +103,18 @@ def _get() -> _RuntimeState:
 def device() -> torch.device:
     """The device this rank computes and communicates on."""
     return _get().device
+
+
+def default_device(device: str | torch.device | None = None) -> torch.device:
+    """``device`` if given, else the device of :func:`init`'s world, else
+    the current card: entry points run on the card unless the caller asks
+    for another device."""
+    if device is not None:
+        return torch.device(device)
+    if _state is not None:
+        return _state.device
+    return torch.device("cuda", torch.cuda.current_device()
+                        if torch.cuda.is_available() else 0)
 
 
 def rank() -> int:

@@ -65,7 +65,8 @@ def _models(mode, seed=0):
                          jnp.asarray(tokens))["params"]
     params = jax.tree.map(lambda x: np.array(x, np.float32), params)
     tmodel = TransformerLM(TransformerConfig(dtype=torch.float32,
-                                             attn_mode=mode, **SMALL))
+                                             attn_mode=mode, **SMALL),
+                           device="cpu")
     tmodel.load_state_dict(from_flax_params(params))
     return jmodel, params, tmodel, tokens
 
@@ -156,4 +157,18 @@ def test_unported_modes_raise(kw):
     """Valid JAX modes the port has not reached raise NotImplementedError
     naming their ROADMAP item, instead of running something else."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerLM(TransformerConfig(dtype=torch.float32, **SMALL, **kw))
+        TransformerLM(TransformerConfig(dtype=torch.float32, **SMALL, **kw),
+                      device="cpu")
+
+
+def test_model_defaults_to_the_card_unless_init_chose_a_device(
+        torch_world, monkeypatch):
+    """Without ``device`` the model goes to the device of ``init()``'s
+    world (here the CPU, as the fixture asked), and before ``init()`` to
+    the card."""
+    from horovod_tpu_torch import runtime
+    model = TransformerLM(TransformerConfig(dtype=torch.float32, **SMALL))
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    monkeypatch.setattr(runtime, "_state", None)
+    assert runtime.default_device().type == "cuda"
+    assert runtime.default_device("cpu") == torch.device("cpu")
