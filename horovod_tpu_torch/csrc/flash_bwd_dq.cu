@@ -113,7 +113,7 @@ cudaError_t run(const void* q, const void* k, const void* v, const float* lse,
                 int sq, int sk, int qpos0, int kpos0, int causal,
                 cudaStream_t stream) {
   const dim3 grid(bh, (sq + BQ - 1) / BQ);
-  return launch(flash_bwd_dq_kernel<T, D>, grid, smem_bytes<D>(), stream,
+  return launch(flash_bwd_dq_kernel<T, D>, grid, NT, smem_bytes<D>(), stream,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), lse, dsum, dout, dq, sq, sk, qpos0,
                 kpos0, causal);
@@ -121,10 +121,13 @@ cudaError_t run(const void* q, const void* k, const void* v, const float* lse,
 
 }  // namespace hvdflash
 
-// Dynamic shared memory per block at head dim d (-1: not built for d).
-extern "C" int hvd_flash_bwd_dq_smem_bytes(int d) {
+// Threads and dynamic shared memory per block at head dim d (0: not built
+// for d); one design for both dtypes.
+extern "C" void hvd_flash_bwd_dq_config(int d, int is_bf16, int* threads,
+                                        int* smem) {
   using namespace hvdflash;
-  return d == 64 ? smem_bytes<64>() : d == 128 ? smem_bytes<128>() : -1;
+  *threads = NT;
+  *smem = d == 64 ? smem_bytes<64>() : d == 128 ? smem_bytes<128>() : 0;
 }
 
 // q (bh, sq, d), k/v (bh, sk, d), all bf16 (is_bf16) or fp32; lse and

@@ -1,9 +1,12 @@
 // Shared pieces of the three flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu): tile sizes, the thread layout, the
-// masking rule and the shared-memory tile loaders.
+// flash_bwd_dq.cu, flash_bwd_dkv.cu): the masking rule `keep`, used by all
+// of them, and the tiles, thread layout and shared-memory loaders of the
+// fp32-FMA design, which flash_bwd_dq.cu runs for every dtype and the other
+// two for fp32 inputs (their bf16 tensor-core kernels build on
+// flash_tc.cuh instead).
 //
-// Layout of every kernel: a block of 256 threads works on one 64 x 64 score
-// tile at a time. Thread (ty, tx) = (tid / 16, tid % 16) owns score rows
+// Layout of the fp32-FMA design: a block of 256 threads works on one 64 x 64
+// score tile at a time. Thread (ty, tx) = (tid / 16, tid % 16) owns score rows
 // ty + 16 i and score columns tx + 16 j, i, j < 4, so the 16 threads that
 // share a row are one half-warp and reduce over the row with shuffles.
 // Tiles live in shared memory as float with a row stride of D + 1, which
@@ -96,14 +99,15 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Opt a kernel in to more than 48 KB of dynamic shared memory, then launch.
+// Opt a kernel in to `smem` bytes of dynamic shared memory (more than 48 KB
+// needs it), then launch it with `threads` threads a block.
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream,
-                   Args... args) {
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
+                   cudaStream_t stream, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, NT, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
