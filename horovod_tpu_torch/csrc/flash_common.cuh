@@ -1,9 +1,8 @@
 // Shared pieces of the three flash-attention kernels (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu): the masking rule `keep`, used by all
 // of them, and the tiles, thread layout and shared-memory loaders of the
-// fp32-FMA design, which flash_bwd_dq.cu runs for every dtype and the other
-// two for fp32 inputs (their bf16 tensor-core kernels build on
-// flash_tc.cuh instead).
+// fp32-FMA design, which all three run for fp32 inputs (their bf16
+// tensor-core kernels build on flash_tc.cuh instead).
 //
 // Layout of the fp32-FMA design: a block of 256 threads works on one 64 x 64
 // score tile at a time. Thread (ty, tx) = (tid / 16, tid % 16) owns score rows

@@ -1,7 +1,7 @@
 // Tensor-core building blocks of the bf16 flash kernels for Hopper (sm_90a),
-// shared by flash_fwd.cu and flash_bwd_dkv.cu: TMA tensor maps and loads,
-// mbarriers, wgmma shared-memory descriptors, the warpgroup products and
-// the accumulator fragment layout.
+// shared by flash_fwd.cu, flash_bwd_dq.cu and flash_bwd_dkv.cu: TMA tensor
+// maps and loads, mbarriers, wgmma shared-memory descriptors, the warpgroup
+// products and the accumulator fragment layout.
 //
 // Shared-memory tiles. A tile of R rows x D bf16 columns is stored as D / 64
 // panels of R rows x 64 columns, each panel starting on 1024 bytes, each row
@@ -128,6 +128,13 @@ __device__ __forceinline__ void fence_operand(float (&d)[R]) {
 // Shared-memory writes by threads, made visible to wgmma (async proxy).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Wait until `threads` threads (a multiple of 32) have reached named
+// barrier `id` (1..15; 0 is __syncthreads'), e.g. the four warps of one
+// warpgroup.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Register budget of the calling warpgroup: a producer warpgroup gives up

@@ -48,6 +48,16 @@ def causal_mask_scores(s, qpos0, kpos0):
     return s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
 
 
+def live_keys(sq, sk, qpos0, kpos0, causal, device=None):
+    """The number of keys each of ``sq`` query rows takes part with, as an
+    int64 (sq,) tensor: all ``sk``, or under causal masking those whose
+    global position is not after the query's."""
+    if not causal:
+        return torch.full((sq,), sk, dtype=torch.int64, device=device)
+    first = int(qpos0) - int(kpos0) + 1
+    return (first + torch.arange(sq, device=device)).clamp(0, sk)
+
+
 def zero_masked(p, s):
     """Zero softmax weights at sentinel-masked score positions, so that a
     fully masked row keeps ``l == 0`` whatever order blocks come in."""

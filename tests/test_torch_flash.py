@@ -131,6 +131,21 @@ def test_flash_backward_kernel_multi_tile(monkeypatch, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,qpos0,kpos0", [(13, 11, 2, 0), (300, 40, 0, 200),
+                                               (130, 200, 0, 70), (8, 8, 50, 0)])
+def test_live_keys_count_unmasked_scores(sq, sk, qpos0, kpos0, causal):
+    """``live_keys`` (the keys each query row takes part with, used by the
+    card's checks) against the unmasked entries of each row of the JAX
+    ``causal_mask_scores``, exactly."""
+    s = jnp.zeros((sq, sk), jnp.float32)
+    if causal:
+        s = jflash.causal_mask_scores(s, jnp.int32(qpos0), jnp.int32(kpos0))
+    want = np.sum(np.asarray(s) > jflash.NEG_INF / 2, axis=-1)
+    got = tflash.live_keys(sq, sk, qpos0, kpos0, causal)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
 def test_local_flash_forward_and_gradients(causal):
     """The port's ``_local_flash`` (its autograd Function over the wrappers)
     against the JAX ``_local_flash`` on the Pallas kernels in interpret
