@@ -31,7 +31,25 @@ Phases, each of which exits non-zero on failure:
    ``DistributedOptimizer(Adam)``, for 5 steps on 8 x 2048 tokens; the loss
    must be finite and fall, and every kernel must have been launched
    ``num_layers x steps`` times. One more step then runs under
-   ``torch.profiler``, which prints its device time by kernel.
+   ``torch.profiler``, which prints its device time by kernel;
+7. convnets: the data-parallel convnet path, which runs no kernel of the
+   port (convolutions, pooling and BatchNorm are cuDNN and torch ops, as
+   they are XLA's in the JAX package). First, in a fresh process of its
+   own, so that no earlier host work slows the host-bound steps: the
+   synthetic-benchmark twin at its defaults (ResNet-50, 224x224, batch 32,
+   NCCL world 1, 2 warmup and 10 timed steps) with ``Compression.none`` and
+   ``fp16``, whose loss must be finite and fall, then VGG-16 at 224x224 and
+   Inception V3 at 299x299 for 3 timed steps (finite losses); after those,
+   the sync layer and the SGD update alone at ResNet-50's gradients, and
+   one profiled ResNet-50 step per wire format (busy share of the timed
+   step, top kernels, device time by kind). Then, here: the port's average
+   pool's backward on a channels-last tensor (torch's own is wrong on the
+   card); ResNet-18 and Inception V3 on the card against the same modules
+   in float64 on the CPU with TF32 off (``CONVNET_REFERENCE_CASES``:
+   logits, gradients and running averages within
+   ``testing.REFERENCE_LIMITS``), with the float32 training-mode gap from
+   float64 measured on both (``CONDITIONING_CASES``); the MNIST twin's
+   smoke epoch, whose step loss must fall.
 
 The last lines are one ``{"kernels": [...]}`` JSON object, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -42,6 +60,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -481,9 +500,26 @@ def _train_step(model, opt, tokens) -> float:
     return loss.item()
 
 
-def _profile_step(step) -> None:
+# Kinds of device work in a profiled step, by kernel name (first match).
+PROFILE_KINDS = (
+    ("nccl", ("nccl",)),
+    ("convolution and GEMM (cuDNN, cuBLAS)",
+     ("conv", "cudnn", "xmma", "gemm", "sm90_", "sm80_", "cutlass", "nvjet",
+      "implicit", "wgrad", "dgrad", "fprop")),
+    ("pooling", ("pool",)),
+    ("reductions (BatchNorm moments, their gradients, loss)",
+     ("reduce", "softmax", "nll")),
+    ("copies, casts and concatenation (pack/unpack, dtype casts)",
+     ("copy", "cat", "fill", "memcpy", "memset")),
+    ("optimizer (fused multi-tensor)", ("multi_tensor",)),
+    ("elementwise (BatchNorm normalize, ReLU, adds)", ("elementwise",)),
+)
+
+
+def _profile_step(step) -> dict:
     """One more training step under ``torch.profiler``: device time by
-    kernel, and the device's busy share of the step's wall time."""
+    kernel, by kind of work (``PROFILE_KINDS``), and the device's busy
+    share of the step's wall time. Returns those numbers."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -504,6 +540,18 @@ def _profile_step(step) -> None:
     for e in kernels[:12]:
         print(f"[profile] {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:<4d} {e.key[:90]}")
+    kinds: dict = {}
+    for e in kernels:
+        name = e.key.lower()
+        kind = next((k for k, words in PROFILE_KINDS
+                     if any(w in name for w in words)), "other")
+        ms, n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    for kind, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+        print(f"[profile] by kind: {ms:8.3f} ms x{n:<5d} "
+              f"({100 * ms / busy_ms:.1f} % of busy) {kind}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "kinds": {k: ms for k, (ms, _) in kinds.items()}}
 
 
 def phase_trainer(dev):
@@ -553,14 +601,208 @@ def phase_trainer(dev):
     return launches
 
 
-def main() -> int:
+# The card-against-CPU cases: (model, image size, the card's compute dtype,
+# train), each held against the same step in float64 on the CPU. ResNet-18
+# trains in float32 with TF32 off. Inception V3's training-mode float32
+# gradients are ill-conditioned, as the JAX model's are (flax's E[x^2] -
+# E[x]^2 variance cancels where a channel's mean is large against its
+# spread, and no residual path damps it: at 75x75 the CPU's float32
+# gradients differ from its float64 ones by 16 %,
+# ``tests/test_torch_vgg_inception.py``), so it trains in float64 on the
+# card, and its float32 convolutions, pooling and their backward are held
+# in eval mode, where no batch moments enter.
+CONVNET_REFERENCE_CASES = (("ResNet18", 224, torch.float32, True),
+                           ("InceptionV3", 299, torch.float64, True),
+                           ("InceptionV3", 299, torch.float32, False))
+# The card's float32 training-mode gradients are within the reference limit
+# of the CPU's float64 ones or, where float32 itself is that far off, no
+# further than this many times the CPU's own float32 gradients are
+# (Inception V3's float64 route stands only while this holds).
+FLOAT32_CONDITIONING_RATIO = 2.0
+CONDITIONING_CASES = (("ResNet18", 224), ("InceptionV3", 299))
+POOLING_LIMIT = 1e-5  # relative norm error of dx, float32
+
+
+def phase_convnet_reference(dev) -> None:
+    """The port's average pool's backward on a channels-last float32 tensor
+    (torch's own is wrong on the card, ``testing.pooling_errors``), then
+    ``CONVNET_REFERENCE_CASES`` held to ``testing.REFERENCE_LIMITS``; then,
+    for ``CONDITIONING_CASES``, the float32 training-mode gradients on the
+    card and on the CPU, each against the CPU's float64 ones, the card's
+    gap held to the larger of the reference limit and
+    ``FLOAT32_CONDITIONING_RATIO`` times the CPU's."""
+    from horovod_tpu_torch import testing
+    limits, failed = testing.REFERENCE_LIMITS, []
+    show = lambda errs, lim=True: ", ".join(
+        f"{k} {v:.3g}" + (f" (limit {limits[k]:g})" if lim else "")
+        for k, v in errs.items())
+    pool = testing.pooling_errors(dev)
+    print(f"[convnets] 3x3 average pool with counted padding, backward on a "
+          f"channels-last float32 tensor on the card vs float64: torch's "
+          f"avg_pool2d dx {pool['avg_pool2d']:.3g}; the port's avg_pool_same "
+          f"(pools a contiguous copy) {pool['avg_pool_same']:.3g} (limit "
+          f"{POOLING_LIMIT:g})")
+    if not pool["avg_pool_same"] <= POOLING_LIMIT:
+        failed.append("avg_pool_same backward")
+    for name, size, dtype, train in CONVNET_REFERENCE_CASES:
+        errs = testing.convnet_reference_errors(name, size, dev, dtype,
+                                                train)
+        print(f"[convnets] reference {name} {size}x{size} batch 2 "
+              f"{'train' if train else 'eval'} mode (TF32 off), card "
+              f"{str(dtype)[6:]} vs CPU float64: {show(errs)}")
+        failed += [f"{name} {str(dtype)[6:]} {k}" for k, v in errs.items()
+                   if not v <= limits[k]]
+    for name, size in CONDITIONING_CASES:
+        cpu64, cpu32, card32 = testing.convnet_steps(
+            name, size, [("cpu", torch.float64, True),
+                         ("cpu", torch.float32, True),
+                         (dev, torch.float32, True)])
+        gaps = {"CPU float32": testing.step_errors(cpu32, cpu64),
+                "card float32": testing.step_errors(card32, cpu64)}
+        for who, errs in gaps.items():
+            print(f"[convnets] conditioning {name} {size}x{size} batch 2 "
+                  f"train mode: {who} vs CPU float64: {show(errs, False)}")
+        gap, cpu_gap = (gaps[w]["grads_rel"]
+                        for w in ("card float32", "CPU float32"))
+        allowed = max(limits["grads_rel"],
+                      FLOAT32_CONDITIONING_RATIO * cpu_gap)
+        print(f"[convnets] conditioning {name}: the card's float32 gradient "
+              f"gap is {gap / max(cpu_gap, 1e-30):.3g} times the CPU's "
+              f"(limit: {allowed:.3g}, the larger of "
+              f"{limits['grads_rel']:g} and {FLOAT32_CONDITIONING_RATIO:g} "
+              f"times the CPU's)")
+        if not gap <= allowed:
+            failed.append(f"{name} float32 training gradients: the card's "
+                          f"are {gap:.3g} from float64, the CPU's "
+                          f"{cpu_gap:.3g}")
+    require(not failed, f"convnets on the card disagree with the CPU: "
+            f"{failed}")
+
+
+def _check_run(res: dict, what: str = "") -> None:
+    losses = res["losses"]
+    print(f"[convnets] {res['model']} {res['image_size']}x"
+          f"{res['image_size']} batch {res['batch_size']}{what}: "
+          f"{res['img_sec']:.1f} images/s, step "
+          f"{res['step_ms']:.2f} ms, peak memory "
+          f"{res['peak_memory_gib']:.2f} GiB, {res['num_param_tensors']} "
+          f"parameter tensors ({res['num_params'] / 1e6:.1f} M), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps "
+          f"on {res['device']}")
+    require(all(math.isfinite(v) for v in losses),
+            f"{res['model']}{what}: loss is not finite")
+
+
+# The synthetic-benchmark twin's runs: (key, flags).
+CONVNET_TWIN_RUNS = (
+    ("ResNet50/none", []),
+    ("ResNet50/fp16", ["--fp16-allreduce"]),
+    ("VGG16", ["--model", "VGG16", "--num-warmup", "1", "--num-iters", "3"]),
+    ("InceptionV3", ["--model", "InceptionV3", "--image-size", "299",
+                     "--num-warmup", "1", "--num-iters", "3"]),
+)
+CONVNET_TWINS_FLAG = "--convnet-twins"
+
+
+def convnet_twins(dev) -> dict:
+    """The synthetic-benchmark twin's timed runs (``CONVNET_TWIN_RUNS``) in
+    one NCCL world of one card, first thing in a process of its own: work
+    on the host before them (a CPU reference step, a profiled step, the
+    earlier phases) leaves the host slower and the host-bound steps with
+    it. Then, each on the ResNet-50 runs' own ``DistributedOptimizer``, the
+    sync layer alone (``synchronize()``: pack, allreduce, unpack) and the
+    SGD-momentum update alone, by :func:`time_ms`; last, one profiled step
+    each, whose busy time is set against the timed step."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import synthetic_benchmark as sb
+    from horovod_tpu_torch.ops import flash
+    hvd.init()
+    require(hvd.size() == 1 and hvd.device() == dev, "init(): not world 1")
+    out, kept = {}, {}
+    flash.reset_launch_counts()
+    for key, flags in CONVNET_TWIN_RUNS:
+        res, step, opt = sb.train(sb.parse_args(flags))
+        wire = key.partition("/")[2]  # the ResNet-50 runs name theirs
+        _check_run(res, f", {wire} on the wire" if wire else "")
+        out[key] = res
+        if wire:
+            require(res["losses"][-1] < res["losses"][0],
+                    f"{key}: loss did not fall")
+            kept[key] = step, opt
+    launches = dict(flash.launches)
+    for key, (_, opt) in kept.items():
+        res = out[key]
+        res["sync_ms"] = time_ms(opt.synchronize, 20)
+        res["sgd_ms"] = time_ms(opt.optimizer.step, 20)
+        print(f"[convnets] {key}: the sync layer alone (DistributedOptimizer."
+              f"synchronize, {res['num_param_tensors']} gradients, world 1) "
+              f"{res['sync_ms']:.3f} ms; the SGD-momentum update alone "
+              f"{res['sgd_ms']:.3f} ms")
+    for key, (step, _) in kept.items():
+        res = out[key]
+        res["profile"] = _profile_step(step)
+        res["busy_share"] = res["profile"]["busy_ms"] / res["step_ms"]
+        print(f"[convnets] {key}: device busy {res['profile']['busy_ms']:.1f}"
+              f" ms of the timed {res['step_ms']:.2f} ms step "
+              f"({100 * res['busy_share']:.1f} %)")
+    hvd.shutdown()
+    return {"runs": out, "launches": launches}
+
+
+def run_convnet_twins() -> dict:
+    """:func:`convnet_twins` in a child process (this script with
+    ``CONVNET_TWINS_FLAG``), its output relayed; returns its result."""
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           CONVNET_TWINS_FLAG], stdout=subprocess.PIPE,
+                          text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1] if proc.returncode == 0 else lines:
+        print(line)
+    require(proc.returncode == 0,
+            f"the convnet twins' process exited {proc.returncode}")
+    return json.loads(lines[-1])
+
+
+def phase_convnets(dev) -> dict:
+    """The convnet path through its entry points: the synthetic-benchmark
+    twin's runs in a fresh process (:func:`convnet_twins`), then the
+    card-against-CPU reference and the MNIST twin's smoke epoch here."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import mnist
+    from horovod_tpu_torch.ops import flash
+    twins = run_convnet_twins()
+    phase_convnet_reference(dev)
+    hvd.init()
+    require(hvd.size() == 1 and hvd.device() == dev, "init(): not world 1")
+    flash.reset_launch_counts()
+    res = mnist.train(mnist.parse_args(["--smoke"]))
+    launches = {n: twins["launches"][n] + flash.launches[n]
+                for n in flash.launches}
+    hvd.shutdown()
+    steps = res["step_losses"]
+    print(f"[convnets] MNIST twin smoke epoch: {res['epochs']} "
+          f"({res['steps_per_epoch']} steps of {res['global_batch']}); step "
+          f"losses {['%.4f' % v for v in steps]}")
+    require(all(math.isfinite(v) for v in steps) and steps[-1] < steps[0],
+            "MNIST twin: the loss did not fall over its smoke epoch")
+    print(f"[convnets] port kernel launches on this path: {launches} (it "
+          "has none: convolutions, pooling and BatchNorm are cuDNN and "
+          "torch ops)")
+    return twins["runs"]
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAILED: no CUDA device is visible")
     import horovod_tpu_torch  # noqa: F401  (fails outside the repository)
 
-    card = nvidia_smi()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if argv == [CONVNET_TWINS_FLAG]:  # the child of run_convnet_twins
+        print(json.dumps(convnet_twins(dev)))
+        return 0
+    card = nvidia_smi()
     print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
@@ -568,10 +810,15 @@ def main() -> int:
     rows = phase_kernels(dev)
     phase_reference(dev)
     launches = phase_trainer(dev)
+    convnets = phase_convnets(dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in edges:  # the tile-edge phase's worst readings
             row["tile_edge_errors"] = edges[row["name"]]
+    print(json.dumps({"convnets": {k: {key: v[key] for key in (
+        "img_sec", "step_ms", "peak_memory_gib", "losses", "profile",
+        "busy_share", "sync_ms", "sgd_ms")
+        if key in v} for k, v in convnets.items()}}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
@@ -581,4 +828,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

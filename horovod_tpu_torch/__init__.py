@@ -13,7 +13,8 @@ Module layout mirrors the JAX package: ``horovod_tpu/X.py`` maps to
 ``horovod_tpu_torch/X.py``. The package imports nothing of JAX.
 """
 
-from . import exceptions
+from . import callbacks, data, exceptions
+from .callbacks import average_metrics, metric_average
 from .exceptions import HorovodInternalError, HostsUpdatedInterrupt
 from .functions import broadcast_optimizer_state, broadcast_parameters
 from .ops.collectives import (Handle, allreduce, barrier, broadcast,
@@ -23,6 +24,7 @@ from .ops.compression import Compression, Compressor
 from .ops.reduce_ops import (Adasum, Average, Max, Min, Product, ReduceOp,
                              Sum)
 from .optim import DistributedOptimizer
+from .models.sync_batch_norm import SyncBatchNorm
 from .process_sets import ProcessSet, add_process_set, global_process_set
 from .runtime import (NotInitializedError, cross_rank, cross_size, cuda_built,
                       device, init, is_initialized, local_rank, local_size,
@@ -32,10 +34,11 @@ __all__ = [
     "Adasum", "Average", "Compression", "Compressor", "DistributedOptimizer",
     "Handle", "HorovodInternalError", "HostsUpdatedInterrupt", "Max", "Min",
     "NotInitializedError", "ProcessSet", "Product", "ReduceOp", "Sum",
-    "add_process_set", "allreduce", "barrier", "broadcast",
-    "broadcast_optimizer_state", "broadcast_parameters", "cross_rank", "cross_size", "cuda_built",
-    "device", "exceptions", "global_process_set", "grouped_allreduce",
-    "grouped_allreduce_async", "grouped_broadcast", "init", "is_initialized",
-    "local_rank", "local_size", "nccl_built", "rank", "shutdown", "size",
-    "tpu_built", "xla_built",
+    "SyncBatchNorm", "add_process_set", "allreduce", "average_metrics",
+    "barrier", "broadcast", "broadcast_optimizer_state",
+    "broadcast_parameters", "callbacks", "cross_rank", "cross_size",
+    "cuda_built", "data", "device", "exceptions", "global_process_set",
+    "grouped_allreduce", "grouped_allreduce_async", "grouped_broadcast",
+    "init", "is_initialized", "local_rank", "local_size", "metric_average",
+    "nccl_built", "rank", "shutdown", "size", "tpu_built", "xla_built",
 ]

@@ -164,3 +164,91 @@ def test_cuda_wrapper_rejects_unsupported_head_dim(cuda_device):
                torch.zeros((1, 8, 1), device=cuda_device), q.clone())
     with pytest.raises(ValueError, match="head dim"):
         flash.block_attend(q, q, q, 0, 0, True, *carries)
+
+
+@pytest.mark.cuda
+def test_cuda_resnet18_matches_cpu(cuda_device):
+    """ResNet-18 at 224x224, one float32 training-mode step on the card
+    (TF32 off) against the same module in float64 on the CPU from the same
+    weights:
+    ``testing.convnet_reference_errors`` (logits, every gradient, the
+    running averages) within ``testing.REFERENCE_LIMITS``."""
+    from horovod_tpu_torch import testing
+    errs = testing.convnet_reference_errors("ResNet18", 224, cuda_device)
+    limits = testing.REFERENCE_LIMITS
+    over = {k: v for k, v in errs.items() if not v <= limits[k]}
+    assert not over, f"over {limits}: {over}"
+    assert torch.backends.cudnn.allow_tf32  # restored after the step
+
+
+@pytest.mark.cuda
+def test_cuda_inception_v3_float32_eval_matches_cpu(cuda_device):
+    """Inception V3 at 299x299, one float32 eval-mode step on the card (TF32
+    off) against float64 on the CPU: its float32 convolutions, pooling
+    (average pools with counted padding) and their backward, where no batch
+    moments make the gradients ill-conditioned, within
+    ``testing.REFERENCE_LIMITS``."""
+    from horovod_tpu_torch import testing
+    errs = testing.convnet_reference_errors("InceptionV3", 299, cuda_device,
+                                            torch.float32, train=False)
+    limits = testing.REFERENCE_LIMITS
+    over = {k: v for k, v in errs.items() if not v <= limits[k]}
+    assert not over, f"over {limits}: {over}"
+
+
+@pytest.mark.cuda
+def test_cuda_avg_pool_same_backward_matches_cpu(cuda_device):
+    """The port's 3x3 average pool with counted padding, backward on a
+    channels-last float32 tensor on the card, against float64 on the CPU:
+    dx within 1e-5 in relative norm (torch's own ``avg_pool2d`` there is
+    wrong, which ``avg_pool_same`` avoids by pooling a contiguous copy)."""
+    from horovod_tpu_torch import testing
+    errs = testing.pooling_errors(cuda_device)
+    assert errs["avg_pool_same"] <= 1e-5, errs
+
+
+@pytest.fixture
+def cuda_world(cuda_device):
+    """An NCCL world of one rank in this process."""
+    from horovod_tpu_torch import runtime
+    runtime.init()
+    yield cuda_device
+    runtime.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sync_batch_norm_world1_equals_batch_norm(cuda_world, dtype):
+    """At an NCCL world of one, ``SyncBatchNorm`` on the card is
+    ``BatchNorm``, bitwise: output, dx, dscale, dbias and the running
+    averages after one training-mode pass."""
+    from horovod_tpu_torch.models import BatchNorm, SyncBatchNorm
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn((8, 6, 5, 3), generator=g) * 2 + 0.5).to(cuda_world,
+                                                             dtype)
+    ct = torch.randn((8, 6, 5, 3), generator=g).to(cuda_world)
+    res = []
+    for cls in (BatchNorm, SyncBatchNorm):
+        norm = cls(6, dtype=dtype, device=cuda_world)
+        xs = x.clone().requires_grad_()
+        y = norm(xs)
+        (y.float() * ct).sum().backward()
+        res.append((y, xs.grad, norm.weight.grad, norm.bias.grad,
+                    norm.running_mean, norm.running_var))
+    for name, a, b in zip(("y", "dx", "dscale", "dbias", "mean", "var"),
+                          *res):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_cuda_convnets_default_to_the_card(cuda_device):
+    """A convnet or norm built with no ``device`` (and no ``init()``) lands
+    on the card."""
+    from horovod_tpu_torch.examples.mnist import ConvNet
+    from horovod_tpu_torch.models import (VGG16, BatchNorm, InceptionV3,
+                                          ResNet18)
+    for module in (ResNet18(num_classes=10), InceptionV3(num_classes=10),
+                   VGG16(num_classes=10, classifier_width=64, image_size=32),
+                   BatchNorm(4), ConvNet()):
+        devices = {t.device.type for t in module.state_dict().values()}
+        assert devices == {"cuda"}, type(module).__name__

@@ -14,7 +14,7 @@ from horovod_tpu_torch.ops import _build, flash
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 PORT_FILES = sorted((REPO / "horovod_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "convnet_host_probe.py"]
 
 
 def _imported_modules(path: Path):
@@ -45,7 +45,10 @@ def test_forbidden_rule_allows_the_port_itself():
 
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, horovod_tpu_torch, horovod_tpu_torch.models, "
-            "horovod_tpu_torch.parallel, horovod_tpu_torch.ops.flash; "
+            "horovod_tpu_torch.parallel, horovod_tpu_torch.ops.flash, "
+            "horovod_tpu_torch.data, horovod_tpu_torch.callbacks, "
+            "horovod_tpu_torch.examples.synthetic_benchmark, "
+            "horovod_tpu_torch.examples.mnist; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -12,6 +12,9 @@ are exact and every comparison is bitwise:
 * one ``DistributedOptimizer(SGD)`` step over several gradient buckets.
 
 The file imports nothing of JAX: a rank imports it to run :func:`_rank_main`.
+It also holds the rank side of the world-2 parity tests whose reference
+side needs JAX (``test_torch_sync_bn.py``, ``test_torch_training_utils.py``):
+:func:`run_world` runs one of its ``_*_rank`` functions in every rank.
 """
 
 import os
@@ -74,27 +77,133 @@ def _rank_main(out_path: str) -> None:
         hvd.shutdown()
 
 
+# SyncBatchNorm at world 2: a global NHWC batch of 8 whose halves go to the
+# two ranks, with the cotangent of the output and the norm's state.
+BN_SHAPE = (8, 3, 5, 6)
+BN_DTYPES = ("float32", "bfloat16")
+
+
+def bn_inputs() -> dict:
+    rng = np.random.default_rng(7)
+    c = BN_SHAPE[-1]
+    f32 = lambda a: np.asarray(a, np.float32)
+    return {"x": f32(rng.standard_normal(BN_SHAPE) * 2 + 0.5),
+            "ct": f32(rng.standard_normal(BN_SHAPE)),
+            "scale": f32(1 + 0.1 * rng.standard_normal(c)),
+            "bias": f32(0.1 * rng.standard_normal(c)),
+            "mean": f32(0.1 * rng.standard_normal(c)),
+            "var": f32(1 + 0.1 * np.abs(rng.standard_normal(c)))}
+
+
+def bn_step(norm, x, ct, inp) -> dict:
+    """One training-mode pass of ``norm`` from ``inp``'s state on NHWC
+    numpy ``x`` (cast to ``x``'s dtype name) with cotangent ``ct``: the
+    output, dx, dscale, dbias and the updated running averages, NHWC and
+    float32."""
+    with torch.no_grad():
+        norm.weight.copy_(torch.from_numpy(inp["scale"]))
+        norm.bias.copy_(torch.from_numpy(inp["bias"]))
+        norm.running_mean.copy_(torch.from_numpy(inp["mean"]))
+        norm.running_var.copy_(torch.from_numpy(inp["var"]))
+    norm.train()
+    xt = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    y = norm(xt)
+    (y.float() * torch.from_numpy(ct).permute(0, 3, 1, 2)).sum().backward()
+    nhwc = lambda t: t.detach().float().permute(0, 2, 3, 1).numpy()
+    return {"y": nhwc(y), "dx": nhwc(xt.grad),
+            "dscale": norm.weight.grad.numpy(),
+            "dbias": norm.bias.grad.numpy(),
+            "mean": norm.running_mean.numpy().copy(),
+            "var": norm.running_var.numpy().copy()}
+
+
+def _sync_bn_rank(out_path: str) -> None:
+    """One rank's half of the batch through ``SyncBatchNorm``."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init(device="cpu")
+    try:
+        rank, inp = hvd.rank(), bn_inputs()
+        half = BN_SHAPE[0] // hvd.size()
+        mine = slice(rank * half, (rank + 1) * half)
+        out = {}
+        for dtype in BN_DTYPES:
+            x = torch.from_numpy(inp["x"][mine]).to(getattr(torch, dtype))
+            norm = hvd.SyncBatchNorm(BN_SHAPE[-1], dtype=x.dtype,
+                                     device="cpu")
+            res = bn_step(norm, x, inp["ct"][mine], inp)
+            out.update({f"{dtype}_{k}": v for k, v in res.items()})
+        np.savez(out_path, **out)
+    finally:
+        hvd.shutdown()
+
+
+# ShardedArrayLoader: 56 rows, global batches of 16 (the trailing 8 rows
+# divide by 1, 2 and the reference's 8 devices), three epochs.
+LOADER_ROWS, LOADER_BATCH, LOADER_EPOCHS = 56, 16, 3
+
+
+def loader_arrays():
+    x = np.arange(LOADER_ROWS * 3, dtype=np.float32).reshape(LOADER_ROWS, 3)
+    return x, np.arange(LOADER_ROWS) * 10
+
+
+def loader_shards() -> dict:
+    """This rank's shards of every epoch, with and without the trailing
+    partial batch, keyed ``{drop}_e{epoch}_b{batch}_{x|y}``."""
+    from horovod_tpu_torch.data import ShardedArrayLoader
+
+    out = {}
+    for drop in (True, False):
+        loader = ShardedArrayLoader(*loader_arrays(), batch_size=LOADER_BATCH,
+                                    seed=5, drop_remainder=drop, device="cpu")
+        for epoch in range(LOADER_EPOCHS):
+            loader.set_epoch(epoch)
+            for i, (x, y) in enumerate(loader):
+                out[f"{drop}_e{epoch}_b{i}_x"] = x.numpy()
+                out[f"{drop}_e{epoch}_b{i}_y"] = y.numpy()
+    return out
+
+
+def _training_utils_rank(out_path: str) -> None:
+    """This rank's loader shards and ``average_metrics`` of rank-dependent
+    metrics."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init(device="cpu")
+    try:
+        rank = hvd.rank()
+        out = loader_shards()
+        logs = hvd.average_metrics({"loss": 1.0 + rank,
+                                    "accuracy": 0.25 * (rank + 1)})
+        out.update({f"metric_{k}": np.asarray(v) for k, v in logs.items()})
+        out["metric_keys"] = np.asarray(list(logs))
+        np.savez(out_path, **out)
+    finally:
+        hvd.shutdown()
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-@pytest.fixture(scope="module")
-def world2(tmp_path_factory):
-    """Results of both ranks, from one world of two processes."""
-    tmp = tmp_path_factory.mktemp("world2")
+def run_world(rank_main: str, tmp: Path, size: int = 2) -> list:
+    """Run ``rank_main(out_path)``, a function of this module, in each rank
+    of one gloo world of ``size`` processes; returns each rank's saved
+    arrays."""
     port = _free_port()
     procs = []
-    for rank in range(2):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
-                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2",
+    for rank in range(size):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(size),
+                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(size),
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                    PYTHONPATH=os.pathsep.join(
                        [str(REPO), str(REPO / "tests"),
                         os.environ.get("PYTHONPATH", "")]))
         code = ("import sys, test_torch_world2 as w; "
-                f"w._rank_main(sys.argv[1])")
+                f"w.{rank_main}(sys.argv[1])")
         procs.append(subprocess.Popen(
             [sys.executable, "-c", code, str(tmp / f"rank{rank}.npz")],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -110,7 +219,13 @@ def world2(tmp_path_factory):
                 p.wait()
     for rank, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {rank} failed:\n{log}"
-    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(2)]
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(size)]
+
+
+@pytest.fixture(scope="module")
+def world2(tmp_path_factory):
+    """Results of both ranks, from one world of two processes."""
+    return run_world("_rank_main", tmp_path_factory.mktemp("world2"))
 
 
 @pytest.mark.parametrize("compression", ["none", "fp16"])
