@@ -32,7 +32,25 @@ Phases, each of which exits non-zero on failure:
    must be finite and fall, and every kernel must have been launched
    ``num_layers x steps`` times. One more step then runs under
    ``torch.profiler``, which prints its device time by kernel;
-7. convnets: the data-parallel convnet path, which runs no kernel of the
+7. long context, in a fresh process of its own: the long-context twin
+   (``horovod_tpu_torch.examples.long_context_lm --model full``) at the full
+   width of the repo's ``TransformerConfig`` defaults over 1 x 16384
+   tokens, bf16 compute, NCCL world 1, for each of ``ring``,
+   ``ring_zigzag`` and ``ulysses``: 2 warm-up and 3 timed steps each; the
+   loss must be finite and fall, each kernel must be launched
+   ``num_layers`` times a step (3 times that for the zigzag, which halves
+   the block even at one rank) at the offsets the schedule gives, and the
+   modes' first-step logits on the same weights must agree within
+   ``LOGITS_AGREEMENT``; once all three are timed, one profiled step each;
+8. ring patterns: K1, K2 and K3 at bh 8, d 64, bf16 against their plain
+   versions (computed one bh slice at a time) under the kernels phase's
+   per-row limits, at every block (sq, sk, qpos0, kpos0) the long-context
+   phase launches (16384 x 16384 at (0, 0); 8192 x 8192 at (0, 0), (8192,
+   0) and (8192, 8192)) and every live block that rank 3 of a contiguous
+   causal ring of 4 over 16384 tokens and rank 0 of a zigzag ring of 4
+   launch; each kernel timed on the fully-past 4096 x 4096 block, where
+   every pair is live;
+9. convnets: the data-parallel convnet path, which runs no kernel of the
    port (convolutions, pooling and BatchNorm are cuDNN and torch ops, as
    they are XLA's in the JAX package). First, in a fresh process of its
    own, so that no earlier host work slows the host-bound steps: the
@@ -57,7 +75,10 @@ The last lines are one ``{"kernels": [...]}`` JSON object, the card's
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
+import gc
 import json
 import math
 import os
@@ -73,6 +94,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense
 STEPS = 5
 BATCH, SEQ = 8, 2048
+# The long-context phase: one sequence of LC_SEQ tokens at world 1.
+LC_SEQ, LC_WARMUP, LC_TIMED = 16384, 2, 3
+LC_MODES = ("ring", "ring_zigzag", "ulysses")
+# The ring-pattern phase: the blocks of a ring of RING_N ranks over
+# RING_SEQ tokens, at bh RING_BH.
+RING_N, RING_SEQ, RING_BH = 4, 16384, 8
 
 
 def require(ok: bool, what: str) -> None:
@@ -160,6 +187,18 @@ def phase_build():
     require(not spills, f"kernels spill registers: {spills}")
 
 
+def by_slice(fn, *args):
+    """``fn(*args)`` one slice of dim 0 (bh) of the tensor arguments at a
+    time, the results concatenated: a plain version's (sq, sk) score
+    matrices of a long block then fit on the card."""
+    bh = next(a for a in args if torch.is_tensor(a)).shape[0]
+    parts = [fn(*(a[i:i + 1] if torch.is_tensor(a) else a for a in args))
+             for i in range(bh)]
+    if torch.is_tensor(parts[0]):
+        return torch.cat(parts)
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 def _block_inputs(g, dev, dtype, bh, sq, sk, d, qpos0, kpos0, causal):
     """Seeded (q, k, v) with q pre-scaled, the forward's lse and out, and a
     random float32 dout with D = rowsum(dout * out)."""
@@ -171,7 +210,8 @@ def _block_inputs(g, dev, dtype, bh, sq, sk, d, qpos0, kpos0, causal):
     carries = (torch.full((bh, sq, 1), flash.NEG_INF, device=dev),
                torch.zeros((bh, sq, 1), device=dev),
                torch.zeros((bh, sq, d), device=dev))
-    m, l, acc = flash.attend_plain(q, k, v, qpos0, kpos0, causal, *carries)
+    m, l, acc = by_slice(flash.attend_plain, q, k, v, qpos0, kpos0, causal,
+                         *carries)
     l_safe = l.clamp_min(1e-30)
     lse = m + torch.log(l_safe)
     dout = torch.randn((bh, sq, d), generator=g, device=dev)
@@ -233,10 +273,12 @@ def _dkv_errs(got, want) -> dict:
             "dv_row_rel": _row_rel_err(dv, dv_p)}
 
 
-def _failures(name, errs, where, skip=()) -> list:
-    """Print one kernel's errors beside their limits in ``TRAINING_LIMITS``
-    (but those in ``skip``) and return the keys that exceed them."""
-    lim = {k: x for k, x in TRAINING_LIMITS[name].items() if k not in skip}
+def _failures(name, errs, where, skip=(), limits=None) -> list:
+    """Print one kernel's errors beside their limits (``limits``, by default
+    ``TRAINING_LIMITS``; but those in ``skip``) and return the keys that
+    exceed them."""
+    lim = {k: x for k, x in (limits or TRAINING_LIMITS)[name].items()
+           if k not in skip}
     print(f"[{where}] {name}: " + ", ".join(
         f"{key} {errs[key]:.4g}" + (f" (limit {lim[key]:g})" if key in lim
                                     else "") for key in errs))
@@ -502,6 +544,7 @@ def _train_step(model, opt, tokens) -> float:
 
 # Kinds of device work in a profiled step, by kernel name (first match).
 PROFILE_KINDS = (
+    ("flash kernels (the port's K1, K2, K3)", ("hvdflash",)),
     ("nccl", ("nccl",)),
     ("convolution and GEMM (cuDNN, cuBLAS)",
      ("conv", "cudnn", "xmma", "gemm", "sm90_", "sm80_", "cutlass", "nvjet",
@@ -599,6 +642,271 @@ def phase_trainer(dev):
     require(all(v == want for v in launches.values()),
             f"launch counts {launches}, want {want} each")
     return launches
+
+
+# The long-context phase's agreement of the three modes' first-step logits
+# (float32 (1, 16384, 32000) from bf16 compute, on the same weights). At one
+# rank ``ring`` and ``ulysses`` make the same kernel calls and agree
+# bitwise; ``ring_zigzag`` sums the past half of each row's keys in another
+# order, so its bf16 attention output may round to the neighbouring value
+# (2^-8 relative) and the difference passes through the later layers.
+# H100 80GB HBM3 at 700 W: zigzag against ring 0.0352 and 0.00178, Ulysses
+# against ring 0 (bitwise).
+LOGITS_AGREEMENT = {"max_abs": 0.25, "mean_abs": 1e-2}
+
+# Each mode's blocks (sq, sk, qpos0, kpos0) at one rank, launched once a
+# layer by each kernel: ring and Ulysses attend the whole block at (0, 0);
+# the zigzag holds chunks 0 and 1 of the 2 and attends their diagonal
+# halves and the past one.
+_C = LC_SEQ // 2
+LC_BLOCKS = {"ring": {(LC_SEQ, LC_SEQ, 0, 0)},
+             "ulysses": {(LC_SEQ, LC_SEQ, 0, 0)},
+             "ring_zigzag": {(_C, _C, 0, 0), (_C, _C, _C, 0),
+                             (_C, _C, _C, _C)}}
+
+
+@contextlib.contextmanager
+def recorded_blocks():
+    """Record the (sq, sk, qpos0, kpos0) of every kernel launch while the
+    block runs, by kernel: a Counter each. The launch counters are the
+    wrappers' own and stay as they are."""
+    from horovod_tpu_torch.ops import flash
+    seen = {n: collections.Counter() for n in flash.launches}
+    originals = {n: getattr(flash, "_launch_" + n[len("flash_"):])
+                 for n in seen}
+
+    def recorder(name, launch):
+        at = (3, 4) if name == "flash_fwd" else (6, 7)
+
+        def run(*args):
+            seen[name][(args[0].shape[1], args[1].shape[1],
+                        int(args[at[0]]), int(args[at[1]]))] += 1
+            return launch(*args)
+        return run
+
+    for n, launch in originals.items():
+        setattr(flash, launch.__name__, recorder(n, launch))
+    try:
+        yield seen
+    finally:
+        for launch in originals.values():
+            setattr(flash, launch.__name__, launch)
+
+
+LONG_CONTEXT_FLAG = "--long-context"
+
+
+def long_context(dev) -> dict:
+    """The long-context twin's step at full width over LC_SEQ tokens in
+    each mode (``LC_MODES``): per mode the step time (mean of the timed
+    steps), tokens/s, peak memory and kernel launches a step, with the
+    checks listed in the module docstring. It runs first thing in a process
+    of its own (:func:`phase_long_context`), and the modes are all timed
+    before any step runs under the profiler: a profiled step leaves the
+    later steps of its process slower. Then, per mode, a fresh twin takes
+    one step and profiles the next (no mode's model outlives its run, so
+    each peak is its own). Returns the numbers by mode."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import long_context_lm as lc
+    from horovod_tpu_torch.models import TransformerConfig
+    from horovod_tpu_torch.ops import flash
+    hvd.init()
+    require(hvd.size() == 1 and hvd.device() == dev, "init(): not world 1")
+    out, first, failed = {}, None, []
+    layers = TransformerConfig().num_layers
+    argv = lambda mode, steps: lc.parse_args(
+        ["--model", "full", "--attn", mode, "--seq-len", str(LC_SEQ),
+         "--batch", "1", "--steps", str(steps)])
+    for mode in LC_MODES:
+        gc.collect()  # the last mode's model, optimizer and hooks
+        torch.cuda.empty_cache()
+        flash.reset_launch_counts()
+        with recorded_blocks() as blocks:
+            res = lc.train(argv(mode, LC_WARMUP + LC_TIMED),
+                           keep_first_logits=True)[0]
+        launches = dict(flash.launches)
+        steps = len(res["losses"])
+        logits = res.pop("first_logits")
+        if first is None:
+            first = (mode, logits)
+        else:
+            diff = (logits - first[1]).abs()
+            agree = {"max_abs": diff.max().item(),
+                     "mean_abs": diff.mean().item()}
+            del diff
+            res["logits_vs_" + first[0]] = agree
+            print(f"[long-context] first-step logits {mode} vs {first[0]}: "
+                  + ", ".join(f"{k} {v:.4g} (limit {LOGITS_AGREEMENT[k]:g})"
+                              for k, v in agree.items()))
+            failed += [f"{mode} logits {k}" for k, v in agree.items()
+                       if not v <= LOGITS_AGREEMENT[k]]
+        del logits
+        step = sum(res["step_s"][LC_WARMUP:]) / LC_TIMED
+        res.update(step_ms=step * 1e3, tokens_per_s=LC_SEQ / step,
+                   launches=launches,
+                   blocks={n: {str(b): c for b, c in cnt.items()}
+                           for n, cnt in blocks.items()})
+        out[mode] = res
+        per_step = len(LC_BLOCKS[mode]) * layers
+        print(f"[long-context] {mode}: TransformerLM "
+              f"{res['num_params'] / 1e6:.1f} M params, bf16, 1 x {LC_SEQ} "
+              f"tokens, NCCL world 1; step {step * 1e3:.1f} ms (mean of "
+              f"steps {LC_WARMUP + 1}-{steps}; step 1 "
+              f"{res['step_s'][0] * 1e3:.1f} ms), {LC_SEQ / step:.0f} "
+              f"tokens/s, peak memory {res['peak_memory_gib']:.2f} GiB; "
+              f"losses {['%.4f' % x for x in res['losses']]}; launches a "
+              f"step {res['launches_per_step'][-1]} (want {per_step} each)")
+        print(f"[long-context] {mode}: blocks launched "
+              f"{ {n: dict(c) for n, c in blocks.items()} }")
+        if not all(math.isfinite(x) for x in res["losses"]):
+            failed.append(f"{mode}: loss is not finite")
+        if not res["losses"][-1] < res["losses"][0]:
+            failed.append(f"{mode}: loss did not fall")
+        if any(v != per_step for d in res["launches_per_step"]
+               for v in d.values()) or set(launches.values()) != {
+                   per_step * steps}:
+            failed.append(f"{mode}: launches {res['launches_per_step']}, "
+                          f"{launches}")
+        want_blocks = {b: layers * steps for b in LC_BLOCKS[mode]}
+        if any(dict(cnt) != want_blocks for cnt in blocks.values()):
+            failed.append(f"{mode}: blocks {blocks}, want {want_blocks}")
+    del first
+    require(not failed, f"long-context phase: {failed}")
+    for mode in LC_MODES:  # where the time goes, after the timing
+        print(f"[long-context] {mode}: one profiled step")
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[mode]["profile"] = _profile_step(lc.train(argv(mode, 1))[1])
+    hvd.shutdown()
+    return out
+
+
+def phase_long_context() -> dict:
+    """:func:`long_context` in a fresh process of its own."""
+    return run_child(LONG_CONTEXT_FLAG, "long-context")
+
+
+def ring_patterns() -> list:
+    """``(where, sq, sk, qpos0, kpos0)`` of every block the long-context
+    phase launches (``LC_BLOCKS``), and of every live block that rank
+    RING_N - 1 of a contiguous causal ring of RING_N over RING_SEQ tokens
+    and rank 0 of a zigzag ring of RING_N launch (the port's schedules)."""
+    from horovod_tpu_torch.parallel import sequence
+    blk, c = RING_SEQ // RING_N, RING_SEQ // (2 * RING_N)
+    ring = [(qp, kp) for step in sequence.ring_schedule(RING_N - 1, RING_N,
+                                                         blk, blk, True)
+            for _, _, qp, kp in step]
+    zig = [(qp, kp) for step in sequence.zigzag_schedule(0, RING_N, c)
+           for _, _, qp, kp in step]
+    path = sorted({b for blocks in LC_BLOCKS.values() for b in blocks},
+                  reverse=True)
+    return ([("long-context " + "/".join(m for m in LC_MODES
+                                         if b in LC_BLOCKS[m]), *b)
+             for b in path]
+            + [(f"ring rank {RING_N - 1}", blk, blk, *b) for b in ring]
+            + [("zigzag rank 0", c, c, *b) for b in zig])
+
+
+def _scaled_limits(rows: int) -> dict:
+    """``TRAINING_LIMITS`` with the counts of dq and dk rows over 1e-3
+    scaled from the training shape's rows to ``rows`` (rounded up)."""
+    train_rows = BATCH * 8 * SEQ
+    return {n: {k: (math.ceil(v * rows / train_rows)
+                    if k.endswith("_rows_over_1e-3") else v)
+                for k, v in lim.items()} for n, lim in TRAINING_LIMITS.items()}
+
+
+def _work(bh, sq, sk, d, pairs, itemsize) -> dict:
+    """(flops, bytes) of each kernel on one block: each input read and each
+    output written once, ``pairs`` live (query, key) pairs."""
+    qkv = bh * (sq + 2 * sk) * d * itemsize
+    carry = bh * sq * (d + 2) * 4
+    grad_in = qkv + bh * sq * (d + 2) * 4  # + dout, lse, D (fp32)
+    return {"flash_fwd": (4 * d * pairs, qkv + 2 * carry),
+            "flash_bwd_dq": (6 * d * pairs, grad_in + bh * sq * d * 4),
+            "flash_bwd_dkv": (8 * d * pairs, grad_in + 2 * bh * sk * d * 4)}
+
+
+def phase_ring_patterns(dev) -> dict:
+    """K1, K2 and K3 against their plain versions at every block of
+    :func:`ring_patterns` (bh RING_BH, d 64, bf16, causal; the plain
+    versions one bh slice at a time, :func:`by_slice`), then each timed
+    on the fully-past block of RING_SEQ / RING_N square, every pair live,
+    beside its plain version, the library (``scaled_dot_product_attention``
+    without masking, forward; its backward for K2 and K3) and its bound.
+    Returns the worst readings and the times."""
+    from horovod_tpu_torch.ops import flash
+    g = torch.Generator(device=dev).manual_seed(4)
+    worst, failed, d = {n: {} for n in TRAINING_LIMITS}, [], 64
+    for where, sq, sk, qpos0, kpos0 in ring_patterns():
+        q, k, v, carries, lse, dout, D = _block_inputs(
+            g, dev, torch.bfloat16, RING_BH, sq, sk, d, qpos0, kpos0, True)
+        args = (q, k, v, qpos0, kpos0, True, *carries)
+        errs = {"flash_fwd": _fwd_errs(flash._launch_fwd(*args),
+                                       by_slice(flash.attend_plain, *args))}
+        args = (q, k, v, lse, dout, D, qpos0, kpos0, True)
+        errs["flash_bwd_dq"] = _dq_errs(
+            flash._launch_bwd_dq(*args), by_slice(flash.plain_bwd_dq, *args),
+            sq, sk, qpos0, kpos0, True)
+        errs["flash_bwd_dkv"] = _dkv_errs(
+            flash._launch_bwd_dkv(*args), by_slice(flash.plain_bwd_dkv, *args))
+        del q, k, v, carries, lse, dout, D, args
+        torch.cuda.synchronize()
+        at = (f"ring-pattern {where} bh={RING_BH} sq={sq} sk={sk} "
+              f"qpos0={qpos0} kpos0={kpos0} d={d} bf16 causal")
+        limits = _scaled_limits(RING_BH * max(sq, sk))
+        for n, e in errs.items():
+            failed += [f"{at}: {f}" for f in _failures(n, e, at,
+                                                       limits=limits)]
+            for key, x in e.items():
+                worst[n][key] = max(worst[n].get(key, 0), x)
+    print(f"[ring-pattern] worst readings {worst}")
+    require(not failed, f"ring patterns disagree with their plain versions: "
+            f"{failed}")
+
+    blk = RING_SEQ // RING_N
+    qpos0, kpos0 = (RING_N - 1) * blk, 0  # rank 3's oldest block: all past
+    q, k, v, carries, lse, dout, D = _block_inputs(
+        g, dev, torch.bfloat16, RING_BH, blk, blk, d, qpos0, kpos0, True)
+    args = (q, k, v, lse, dout, D, qpos0, kpos0, True)
+    runs = {
+        "flash_fwd": (lambda: flash._launch_fwd(q, k, v, qpos0, kpos0, True,
+                                                *carries),
+                      lambda: flash.attend_plain(q, k, v, qpos0, kpos0, True,
+                                                 *carries)),
+        "flash_bwd_dq": (lambda: flash._launch_bwd_dq(*args),
+                         lambda: flash.plain_bwd_dq(*args)),
+        "flash_bwd_dkv": (lambda: flash._launch_bwd_dkv(*args),
+                          lambda: flash.plain_bwd_dkv(*args)),
+    }
+    F = torch.nn.functional
+    q4, k4, v4 = (t.view(1, RING_BH, blk, d).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, scale=1.0), 10)
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+    dout4 = dout.view(1, RING_BH, blk, d).to(torch.bfloat16)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out4, (q4, k4, v4), dout4, retain_graph=True), 10)
+    pairs = RING_BH * unmasked_pairs(blk, blk, qpos0, kpos0, True)
+    require(pairs == RING_BH * blk * blk, "the timed block is not all past")
+    work = _work(RING_BH, blk, blk, d, pairs, q.element_size())
+    times = {}
+    for n, (kern, plain) in runs.items():
+        flops, nbytes = work[n]
+        bound_ms, bound_by = bound(flops, nbytes, torch.bfloat16)
+        times[n] = {"ms": time_ms(kern, 10), "plain_ms": time_ms(plain, 3),
+                    "library_ms": lib_fwd if n == "flash_fwd" else lib_bwd,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "flops": flops, "bytes": nbytes,
+                    "shape": f"bh={RING_BH} sq=sk={blk} qpos0={qpos0} "
+                             f"kpos0={kpos0} d={d} bf16 causal, every pair "
+                             "live"}
+        print(f"[ring-pattern] {n} on the fully-past block: "
+              f"{times[n]['ms']:.3f} ms (plain {times[n]['plain_ms']:.3f} "
+              f"ms, library {times[n]['library_ms']:.3f} ms, bound "
+              f"{bound_ms:.3f} ms by {bound_by})")
+    return {"errors": worst, "fully_past_block": times}
 
 
 # The card-against-CPU cases: (model, image size, the card's compute dtype,
@@ -749,18 +1057,17 @@ def convnet_twins(dev) -> dict:
     return {"runs": out, "launches": launches}
 
 
-def run_convnet_twins() -> dict:
-    """:func:`convnet_twins` in a child process (this script with
-    ``CONVNET_TWINS_FLAG``), its output relayed; returns its result."""
+def run_child(flag: str, what: str) -> dict:
+    """This script with ``flag`` in a child process, its output relayed;
+    returns the JSON object of its last line."""
     torch.cuda.empty_cache()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           CONVNET_TWINS_FLAG], stdout=subprocess.PIPE,
-                          text=True, timeout=600)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                          stdout=subprocess.PIPE, text=True, timeout=600)
     lines = proc.stdout.splitlines()
     for line in lines[:-1] if proc.returncode == 0 else lines:
         print(line)
     require(proc.returncode == 0,
-            f"the convnet twins' process exited {proc.returncode}")
+            f"the {what} process exited {proc.returncode}")
     return json.loads(lines[-1])
 
 
@@ -771,7 +1078,7 @@ def phase_convnets(dev) -> dict:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.examples import mnist
     from horovod_tpu_torch.ops import flash
-    twins = run_convnet_twins()
+    twins = run_child(CONVNET_TWINS_FLAG, "convnet twins'")
     phase_convnet_reference(dev)
     hvd.init()
     require(hvd.size() == 1 and hvd.device() == dev, "init(): not world 1")
@@ -799,8 +1106,10 @@ def main(argv) -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    if argv == [CONVNET_TWINS_FLAG]:  # the child of run_convnet_twins
-        print(json.dumps(convnet_twins(dev)))
+    children = {CONVNET_TWINS_FLAG: convnet_twins,
+                LONG_CONTEXT_FLAG: long_context}
+    if len(argv) == 1 and argv[0] in children:  # a child of run_child
+        print(json.dumps(children[argv[0]](dev)))
         return 0
     card = nvidia_smi()
     print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
@@ -810,11 +1119,23 @@ def main(argv) -> int:
     rows = phase_kernels(dev)
     phase_reference(dev)
     launches = phase_trainer(dev)
+    long_ctx = phase_long_context()
+    patterns = phase_ring_patterns(dev)
     convnets = phase_convnets(dev)
     for row in rows:
-        row["launches"] = launches[row["name"]]
-        if row["name"] in edges:  # the tile-edge phase's worst readings
-            row["tile_edge_errors"] = edges[row["name"]]
+        name = row["name"]
+        row["launches"] = launches[name]
+        row["launches_long_context"] = {
+            mode: res["launches_per_step"][-1][name]
+            for mode, res in long_ctx.items()}
+        row["tile_edge_errors"] = edges[name]  # worst readings
+        row["ring_pattern_errors"] = patterns["errors"][name]
+        row["fully_past_block"] = patterns["fully_past_block"][name]
+    print(json.dumps({"long_context": {mode: {key: res[key] for key in (
+        "step_ms", "tokens_per_s", "peak_memory_gib", "losses", "step_s",
+        "launches_per_step", "blocks", "logits_vs_ring", "profile")
+        if key in res}
+        for mode, res in long_ctx.items()}}))
     print(json.dumps({"convnets": {k: {key: v[key] for key in (
         "img_sec", "step_ms", "peak_memory_gib", "losses", "profile",
         "busy_share", "sync_ms", "sgd_ms")

@@ -3,10 +3,15 @@
 The same model as the flax one, as ``nn.Module``s: float32 parameters with
 compute in ``cfg.dtype`` (bfloat16 by default), LayerNorm statistics in
 float32 with epsilon 1e-6, tanh-approximated GELU, and float32 logits.
-Attention is ``"full"`` (plain PyTorch) or ``"ulysses"`` (the flash kernels,
-through :func:`horovod_tpu_torch.parallel.sequence.ulysses_attention` over a
-sequence group of one rank). :func:`from_flax_params` carries the JAX
-package's weights across.
+Attention is ``"full"`` (plain PyTorch), or one of the sequence-parallel
+modes on the flash kernels: ``"ring"`` and ``"ring_zigzag"``
+(:func:`horovod_tpu_torch.parallel.sequence.ring_attention`) and
+``"ulysses"`` (:func:`~horovod_tpu_torch.parallel.sequence.ulysses_attention`).
+In those the model runs on this rank's block of the sequence, over the
+sequence group given as ``seq_group`` (a ``torch.distributed`` group; None
+is this rank alone), and positions are offset by the group rank times the
+block length. :func:`from_flax_params` carries the JAX package's weights
+across.
 
 Every module is built on ``device`` when one is given, else on
 :func:`horovod_tpu_torch.runtime.default_device`: the device of ``init()``'s
@@ -24,7 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import runtime
-from ..parallel.sequence import ulysses_attention
+from ..parallel.sequence import group_rank, ring_attention, ulysses_attention
 
 RING_SCHEDULES = {"ring": "contiguous", "ring_zigzag": "zigzag"}
 SEQ_PARALLEL_MODES = tuple(RING_SCHEDULES) + ("ulysses",)
@@ -40,8 +45,9 @@ class TransformerConfig:
     d_ff: int = 2048
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    # "full" (exact local attention in plain PyTorch) or "ulysses" (the
-    # flash kernels); "ring"/"ring_zigzag" are ROADMAP item A7
+    # "full" (exact local attention in plain PyTorch), or on the flash
+    # kernels over the model's sequence group: "ring", "ring_zigzag" (the
+    # causal load-balanced zigzag schedule) or "ulysses"
     attn_mode: str = "full"
     moe_experts: int = 0  # expert-parallel MoE FFN: ROADMAP item A9
 
@@ -85,13 +91,10 @@ class LayerNorm(nn.LayerNorm):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, seq_group=None):
         super().__init__()
-        if cfg.attn_mode in RING_SCHEDULES:
-            raise NotImplementedError(
-                f"attn_mode={cfg.attn_mode!r} is not ported yet (ROADMAP.md "
-                "queue A, item A7)")
         self.cfg = cfg
+        self.seq_group = seq_group
         device = runtime.default_device(device)
         self.head_dim = cfg.d_model // cfg.num_heads
         inner = cfg.num_heads * self.head_dim
@@ -107,8 +110,11 @@ class Attention(nn.Module):
         q = self.q(x).view(heads)
         k = self.k(x).view(heads)
         v = self.v(x).view(heads)
-        if cfg.attn_mode == "ulysses":
-            out = ulysses_attention(q, k, v, causal=True)
+        if cfg.attn_mode in RING_SCHEDULES:
+            out = ring_attention(q, k, v, self.seq_group, causal=True,
+                                 schedule=RING_SCHEDULES[cfg.attn_mode])
+        elif cfg.attn_mode == "ulysses":
+            out = ulysses_attention(q, k, v, self.seq_group, causal=True)
         else:
             q = q / torch.tensor(math.sqrt(self.head_dim)).to(cfg.dtype)
             logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
@@ -132,7 +138,7 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, seq_group=None):
         super().__init__()
         if cfg.moe_experts > 0:
             raise NotImplementedError(
@@ -140,7 +146,7 @@ class Block(nn.Module):
                 "item A9)")
         device = runtime.default_device(device)
         self.ln1 = LayerNorm(cfg.d_model, cfg.dtype, device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, seq_group)
         self.ln2 = LayerNorm(cfg.d_model, cfg.dtype, device)
         self.mlp = MLP(cfg, device)
 
@@ -150,17 +156,20 @@ class Block(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """Token ids (batch, seq) -> float32 logits (batch, seq, vocab)."""
+    """Token ids (batch, seq) -> float32 logits (batch, seq, vocab). In a
+    sequence-parallel ``attn_mode`` the tokens are this rank's block of the
+    sequence, block r of the ranks of ``seq_group``."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, seq_group=None):
         super().__init__()
         self.cfg = cfg
+        self.seq_group = seq_group
         device = runtime.default_device(device)
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device)
         self.pos_embed = nn.Embedding(cfg.max_seq_len, cfg.d_model,
                                       device=device)
         self.blocks = nn.ModuleList(
-            Block(cfg, device) for _ in range(cfg.num_layers))
+            Block(cfg, device, seq_group) for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg.d_model, cfg.dtype, device)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.dtype, device)
 
@@ -183,9 +192,11 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens):
         cfg = self.cfg
-        # A sequence group of one rank: positions start at 0 (the JAX model
-        # offsets them by the group rank times the block length).
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+        if cfg.attn_mode in SEQ_PARALLEL_MODES:
+            # this rank holds block r of the sequence
+            block = group_rank(self.seq_group) * tokens.shape[1]
+            positions = positions + block
         x = self.embed(tokens).to(cfg.dtype)
         x = x + self.pos_embed(positions).to(cfg.dtype)[None]
         for block in self.blocks:

@@ -246,7 +246,7 @@ def block_attend(q, k, v, qpos0, kpos0, causal, m, l, acc):
     Layout: q (bh, sq, d) pre-scaled; k/v (bh, sk, d), bf16 or float32;
     m/l (bh, sq, 1) and acc (bh, sq, d) float32; ``qpos0``/``kpos0`` the
     int32 global token offsets of the blocks, for causal masking. The
-    gradient is taken by ``_LocalFlashCore`` in ``parallel/sequence.py``,
+    gradient is taken by ``_RingCore`` in ``parallel/sequence.py``,
     not through this function."""
     if _on_cpu(q, k, v, m, l, acc):
         return attend_plain(q, k, v, qpos0, kpos0, causal, m, l, acc)

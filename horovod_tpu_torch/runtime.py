@@ -30,6 +30,7 @@ class _RuntimeState:
     local_rank: int
     local_size: int
     owns_group: bool  # init() created the process group, shutdown() ends it
+    homogeneous: bool = True  # every node runs the same number of ranks
 
 
 _state: _RuntimeState | None = None
@@ -74,9 +75,15 @@ def init(device: str | torch.device | None = None) -> None:
             raise RuntimeError(
                 f"init(): WORLD_SIZE={size} needs MASTER_ADDR and MASTER_PORT")
         owns = True
-    _state = _RuntimeState(device=device, rank=dist.get_rank(),
-                           size=dist.get_world_size(), local_rank=local_rank,
-                           local_size=local_size, owns_group=owns)
+    size = dist.get_world_size()
+    local_sizes = [local_size]
+    if size > 1:  # one small exchange: each rank knows only its own node
+        local_sizes = [None] * size
+        dist.all_gather_object(local_sizes, local_size)
+    _state = _RuntimeState(device=device, rank=dist.get_rank(), size=size,
+                           local_rank=local_rank, local_size=local_size,
+                           owns_group=owns,
+                           homogeneous=len(set(local_sizes)) == 1)
 
 
 def shutdown() -> None:
@@ -142,6 +149,13 @@ def cross_rank() -> int:
 def cross_size() -> int:
     s = _get()
     return max(s.size // s.local_size, 1)
+
+
+def is_homogeneous() -> bool:
+    """True when every node runs the same number of ranks (reference
+    ``is_homogeneous``: every process drives the same number of chips).
+    Read from the ranks' ``LOCAL_WORLD_SIZE``, exchanged at :func:`init`."""
+    return _get().homogeneous
 
 
 def nccl_built() -> bool:

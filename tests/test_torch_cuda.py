@@ -1,12 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here is marked ``cuda`` and skips on a host without a card. The
-file imports nothing of JAX, so it runs where only PyTorch is installed:
+Every test here is marked ``cuda`` and skips on a host without a card; the
+``world4`` tests (NCCL over four ranks, one card each) skip on a host with
+fewer than four. The file imports nothing of JAX, so it runs where only
+PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -252,3 +255,193 @@ def test_cuda_convnets_default_to_the_card(cuda_device):
                    BatchNorm(4), ConvNet()):
         devices = {t.device.type for t in module.state_dict().values()}
         assert devices == {"cuda"}, type(module).__name__
+
+
+def _ring_patterns(n=4, seq=2048):
+    """Every live (sq, sk, qpos0, kpos0) of rank n-1 of a causal ring of n
+    over ``seq`` tokens and of rank 0 of a zigzag ring of n (the shapes
+    ``chip_smoke.py`` runs at 16384 tokens, here at ``seq``)."""
+    blk, c = seq // n, seq // (2 * n)
+    ring = [(blk, blk, qp, kp)
+            for step in sequence.ring_schedule(n - 1, n, blk, blk, True)
+            for _, _, qp, kp in step]
+    zig = [(c, c, qp, kp) for step in sequence.zigzag_schedule(0, n, c)
+           for _, _, qp, kp in step]
+    return ring + zig
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _ring_patterns(),
+                         ids=lambda s: "sq{}-sk{}-q{}-k{}".format(*s))
+def test_cuda_ring_pattern_kernels_match_plain(cuda_device, shape):
+    """The blocks a ring and a zigzag ring of 4 launch, diagonal and fully
+    past at offsets up to 1792, bh 4, d 64, bf16, causal, from zero
+    carries: each row of acc / l, dq, dk and dv within ``ROW_LIMITS`` of
+    its plain row, dq's and dk's 90th-percentile rows within
+    ``P90_LIMIT``."""
+    sq, sk, qpos0, kpos0 = shape
+    g = torch.Generator().manual_seed(qpos0 * 7 + kpos0)
+    q, k, v, lse, dout, D = _block(g, cuda_device, torch.bfloat16, 4, sq,
+                                   sk, 64, qpos0, kpos0, True)
+    carries = (torch.full((4, sq, 1), flash.NEG_INF, device=cuda_device),
+               torch.zeros((4, sq, 1), device=cuda_device),
+               torch.zeros((4, sq, 64), device=cuda_device))
+    m1, l1, a1 = flash.block_attend(q, k, v, qpos0, kpos0, True, *carries)
+    m2, l2, a2 = flash.attend_plain(q, k, v, qpos0, kpos0, True, *carries)
+    got = flash.flash_block_grads(q, k, v, lse, dout, D, qpos0, kpos0, True)
+    want = flash.plain_block_grads(q, k, v, lse, dout, D, qpos0, kpos0,
+                                   True)
+    rows = {"acc / l": _row_errs(a1 / l1, a2 / l2),
+            "dq": _dq_row_errs(got[0], want[0], sq, sk, qpos0, kpos0, True),
+            "dk": _row_errs(got[1], want[1]),
+            "dv": _row_errs(got[2], want[2])}
+    limits = ROW_LIMITS[torch.bfloat16]
+    over = {n: e.max().item() for n, e in rows.items()
+            if not e.max() <= limits[n]}
+    assert not over, f"per-row relative errors over {limits}: {over}"
+    for name in ("dq", "dk"):
+        p90 = torch.quantile(rows[name].flatten(), 0.9)
+        assert p90 <= P90_LIMIT, f"{name}'s 90th-percentile row: {p90:.3g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn,per_layer", [("ring", 1), ("ring_zigzag", 3),
+                                            ("ulysses", 1)])
+def test_cuda_long_context_step_world1(cuda_world, attn, per_layer):
+    """Two steps of the long-context twin at full width over 2048 tokens
+    at an NCCL world of one: finite losses, and each kernel launched
+    ``per_layer`` times a layer a step (the zigzag halves the block even at
+    one rank: its diagonal halves and the past one)."""
+    from horovod_tpu_torch.examples import long_context_lm as lc
+    res, _ = lc.train(lc.parse_args(["--model", "full", "--attn", attn,
+                                     "--seq-len", "2048", "--batch", "1",
+                                     "--steps", "2"]))
+    assert all(torch.isfinite(torch.tensor(res["losses"])))
+    want = 4 * per_layer
+    assert res["launches_per_step"] == [{n: want for n in flash.launches}] * 2
+
+
+# --------------------------------------------------------------------------
+# NCCL at a world of four: one card a rank (NCCL takes no two ranks on one
+# card), so these run only on a host with four cards.
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA cards: NCCL takes one card a rank")
+
+
+@pytest.fixture(scope="module")
+def nccl_attention(four_cards, tmp_path_factory):
+    """Every rank's attention cases from one NCCL world of four."""
+    from test_torch_world2 import run_world
+    return run_world("_sequence_rank_on_card",
+                     tmp_path_factory.mktemp("nccl_attention"), size=4,
+                     module="test_torch_long_context")
+
+
+# Each kernel's launches on rank r of n in each case: the causal contiguous
+# ring skips the blocks in the future, the zigzag computes 2n + 1
+# sub-blocks on every rank, Ulysses one local block.
+CASE_LAUNCHES = {"ring_causal": lambda r, n: r + 1,
+                 "ring_full": lambda r, n: n,
+                 "zigzag": lambda r, n: 2 * n + 1,
+                 "ulysses_causal": lambda r, n: 1,
+                 "ulysses_full": lambda r, n: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASE_LAUNCHES))
+def test_cuda_nccl_world4_attention_matches_one_card(nccl_attention,
+                                                     cuda_device, case):
+    """Ring (causal and not), zigzag ring and Ulysses over four cards
+    (NCCL: the ring's ``batch_isend_irecv``, the zigzag's routing, the
+    all-to-alls), float32 at head dim 64, 256 tokens a rank: the gathered
+    output and q, k, v gradients of sum((out - tgt)^2) against the local
+    flash path over the whole sequence on one card, rtol = atol = 1e-4
+    (the float32 kernels over other blocks, summed in another order); each
+    rank launched each kernel as often as its schedule says."""
+    from test_torch_long_context import card_inputs
+    inp = card_inputs(4)
+    causal = case != "ring_full" and case != "ulysses_full"
+    q, k, v = (torch.from_numpy(inp[x]).to(cuda_device).requires_grad_()
+               for x in "qkv")
+    out = sequence._local_flash(q, k, v, causal)
+    ((out - torch.from_numpy(inp["tgt"]).to(cuda_device)) ** 2).sum(
+        ).backward()
+    want = {"out": out, "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    for key, ref in want.items():
+        got = torch.from_numpy(np.concatenate(
+            [r[f"{case}_{key}"] for r in nccl_attention], axis=1))
+        torch.testing.assert_close(got, ref.detach().cpu(), rtol=1e-4,
+                                   atol=1e-4, msg=lambda m: f"{key}: {m}")
+    for r, res in enumerate(nccl_attention):
+        assert res[f"{case}_launches"].tolist() == [
+            CASE_LAUNCHES[case](r, 4)] * 3, f"rank {r}"
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_collectives_are_exact(four_cards, tmp_path):
+    """``allgather`` (ragged, int32, 0-d, async), even and uneven
+    ``alltoall``, ``reducescatter`` (SUM, AVERAGE, int32),
+    ``broadcast_async`` and the object collectives over NCCL at a world of
+    four, each against numpy on the same integer-valued inputs: bitwise;
+    the error cases with the gloo world's text."""
+    from test_torch_world2 import (A2AV_ROWS, a2av_splits, collective_inputs,
+                                   collective_objects, run_world)
+    n = 4
+    ranks = run_world("_collectives_rank_on_card", tmp_path, size=n)
+    inp, smat = collective_inputs(n), a2av_splits(n)
+
+    def chunk(x, j, parts):
+        rows = len(x) // parts
+        return x[j * rows:(j + 1) * rows]
+
+    def same(got, want):
+        want = np.asarray(want)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+    gathered = [collective_objects(r)[1] for r in range(n)]
+    for r, res in enumerate(ranks):
+        for key in ("ag", "ag_int"):
+            same(res[key], np.concatenate(inp[key]))
+        same(res["ag_scalar"], np.stack(inp["ag_scalar"]))
+        same(res["ag_async"], res["ag"])
+        for key in ("a2a", "a2a_int"):
+            same(res[key], np.concatenate([chunk(x, r, n) for x in inp[key]]))
+        total = sum(inp["rs"])
+        same(res["rs_sum"], chunk(total, r, n))
+        same(res["rs_avg"], chunk(total, r, n) / np.float32(n))
+        same(res["rs_int"], chunk(sum(inp["rs_int"]), r, n))
+        starts = np.cumsum(smat, axis=1) - smat
+        same(res["a2av"], np.concatenate(
+            [inp["a2av"][j][starts[j, r]:starts[j, r] + smat[j, r]]
+             for j in range(n)]))
+        same(res["a2av_recv"], smat[:, r].astype(np.int32))
+        same(res["bcast_async"], inp["a2a"][n - 1])
+        assert str(res["err_a2a_rows"]) == (
+            f"ValueError: alltoall dim0 ({2 * n + 1}) must be divisible by "
+            f"process set size ({n})")
+        assert str(res["err_a2av_sum"]) == (
+            f"ValueError: sum of splits entries exceeds the first dimension "
+            f"({A2AV_ROWS}) (reference operations.cc:1703-1707)")
+        assert str(res["bcast_object"]) == repr(collective_objects(n - 1)[0])
+        assert str(res["gather_object"]) == repr(gathered)
+        assert bool(res["homogeneous"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn", ["ring", "ring_zigzag", "ulysses"])
+def test_cuda_nccl_world4_long_context_twin(four_cards, attn):
+    """``python -m horovod_tpu_torch.examples.long_context_lm`` over four
+    cards, 65536 tokens (16384 a rank) at full width for 3 steps: every
+    rank exits 0, so the loss fell (the twin raises where it does not)."""
+    from test_torch_long_context import twin
+    logs = twin(4, ["--model", "full", "--attn", attn, "--seq-len",
+                    "65536", "--batch", "1", "--steps", "3"])
+    assert "attention over 4 ranks, seq=65536 (16384 tokens/rank)" in logs[0]
+    assert "OK" in logs[0], logs[0]
+    print(logs[0])

@@ -48,7 +48,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "horovod_tpu_torch.parallel, horovod_tpu_torch.ops.flash, "
             "horovod_tpu_torch.data, horovod_tpu_torch.callbacks, "
             "horovod_tpu_torch.examples.synthetic_benchmark, "
-            "horovod_tpu_torch.examples.mnist; "
+            "horovod_tpu_torch.examples.mnist, "
+            "horovod_tpu_torch.examples.long_context_lm; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

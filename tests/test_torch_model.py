@@ -3,9 +3,11 @@ the JAX package's, on the CPU at a small size (2 layers, d_model 64, 4 heads,
 d_ff 128, vocab 64, seq 32, float32).
 
 The JAX model's weights go through ``from_flax_params`` into the port's
-model; both see the same numpy tokens. ``"ulysses"`` runs the JAX model under
+model; both see the same numpy tokens. The sequence-parallel modes
+(``"ulysses"``, ``"ring"``, ``"ring_zigzag"``) run the JAX model under
 ``jax.shard_map`` over a one-device ``sp`` mesh (a sequence group of one
-rank), the port on its flash wrappers' plain versions.
+rank), the port on its flash wrappers' plain versions; worlds of 2 and 4
+are in ``test_torch_sequence_parallel.py``.
 """
 
 import jax
@@ -71,7 +73,7 @@ def _models(mode, seed=0):
     return jmodel, params, tmodel, tokens
 
 
-@pytest.mark.parametrize("mode", ["ulysses", "full"])
+@pytest.mark.parametrize("mode", ["ulysses", "full", "ring", "ring_zigzag"])
 def test_transformer_logits_loss_and_grads_match_jax(mode):
     """Logits rtol 1e-4 atol 1e-5, loss rtol 1e-5, every parameter's
     gradient (mapped by the same weight-layout transform) rtol 1e-4 atol
@@ -150,12 +152,14 @@ def test_config_validation_matches_jax(mode):
         TransformerConfig(attn_mode=mode)
 
 
-@pytest.mark.parametrize("kw", [dict(attn_mode="ring"),
-                                dict(attn_mode="ring_zigzag"),
+@pytest.mark.parametrize("kw", [dict(moe_experts=2, attn_mode="ring"),
+                                dict(moe_experts=4,
+                                     attn_mode="ring_zigzag"),
                                 dict(moe_experts=2)])
 def test_unported_modes_raise(kw):
-    """Valid JAX modes the port has not reached raise NotImplementedError
-    naming their ROADMAP item, instead of running something else."""
+    """Valid JAX configurations the port has not reached (the MoE FFN,
+    under any attention mode) raise NotImplementedError naming their
+    ROADMAP item, instead of running something else."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TransformerLM(TransformerConfig(dtype=torch.float32, **SMALL, **kw),
                       device="cpu")

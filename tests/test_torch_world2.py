@@ -183,16 +183,109 @@ def _training_utils_rank(out_path: str) -> None:
         hvd.shutdown()
 
 
+# The eager collectives at worlds 2 and 4: integer-valued inputs (float32
+# and int32), so that every sum is exact and an average divides by a power
+# of two; rank r's rows of the ragged allgather are AG_ROWS[r].
+AG_ROWS = (2, 0, 3, 1)
+A2AV_ROWS = 5
+
+
+def a2av_splits(n: int) -> np.ndarray:
+    """The uneven alltoall's (n, n) splits: row r is what rank r sends
+    each rank; every row sums to less than ``A2AV_ROWS`` or to it."""
+    i, j = np.indices((n, n))
+    return (i + 2 * j) % 3
+
+
+def collective_inputs(n: int) -> dict:
+    """Every rank's inputs of the collectives, as per-rank lists."""
+    rng = np.random.default_rng(30 + n)
+    ints = lambda shape, dt=np.float32: rng.integers(
+        -50, 50, size=shape).astype(dt)
+    return {"ag": [ints((AG_ROWS[r], 3)) for r in range(n)],
+            "ag_int": [ints((AG_ROWS[r], 2), np.int32) for r in range(n)],
+            "ag_scalar": [np.float32(r + 1) for r in range(n)],
+            "a2a": [ints((2 * n, 3)) for _ in range(n)],
+            "a2a_int": [ints((n, 2), np.int32) for _ in range(n)],
+            "a2av": [ints((A2AV_ROWS, 2)) for _ in range(n)],
+            "rs": [ints((2 * n, 3)) for _ in range(n)],
+            "rs_int": [ints((n, 2), np.int32) for _ in range(n)],
+            "bad_rows": [ints((2 * n + 1, 2)) for _ in range(n)],
+            "bad_int": [ints((n, 2), np.int32) for _ in range(n)]}
+
+
+def collective_objects(rank: int):
+    """The objects rank ``rank`` broadcasts and gathers."""
+    return {"from": rank, "rows": [rank] * 3}, (rank, "x" * rank)
+
+
+def _raised(fn) -> str:
+    try:
+        fn()
+    except (ValueError, TypeError) as e:
+        return f"{type(e).__name__}: {e}"
+    return ""
+
+
+def _collectives_rank(out_path: str, device: str | None = "cpu") -> None:
+    """One rank of the collectives world: every op on its own inputs, on
+    ``device`` (gloo on the CPU; None: NCCL, one card a rank)."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init(device=device)
+    try:
+        n, rank = hvd.size(), hvd.rank()
+        inp = {k: torch.as_tensor(v[rank]).to(hvd.device()) for k, v in
+               collective_inputs(n).items()}
+        out = {"ag": hvd.allgather(inp["ag"]),
+               "ag_int": hvd.allgather(inp["ag_int"]),
+               "ag_scalar": hvd.allgather(inp["ag_scalar"]),
+               "ag_async": hvd.allgather_async(inp["ag"]).synchronize(),
+               "a2a": hvd.alltoall(inp["a2a"]),
+               "a2a_int": hvd.alltoall(inp["a2a_int"]),
+               "rs_sum": hvd.reducescatter(inp["rs"], op=hvd.Sum),
+               "rs_avg": hvd.reducescatter(inp["rs"], op=hvd.Average),
+               "rs_int": hvd.reducescatter(inp["rs_int"]),
+               "bcast_async": hvd.broadcast_async(
+                   inp["a2a"], root_rank=n - 1).synchronize()}
+        out["a2av"], out["a2av_recv"] = hvd.alltoall(
+            inp["a2av"], splits=a2av_splits(n)[rank])
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        too_many = np.full(n, A2AV_ROWS)
+        out.update({
+            "err_a2a_rows": _raised(lambda: hvd.alltoall(inp["bad_rows"])),
+            "err_rs_rows": _raised(lambda: hvd.reducescatter(
+                inp["bad_rows"])),
+            "err_rs_avg_int": _raised(lambda: hvd.reducescatter(
+                inp["bad_int"], op=hvd.Average)),
+            "err_a2av_sum": _raised(lambda: hvd.alltoall(
+                inp["a2av"], splits=too_many)),
+            "err_a2av_len": _raised(lambda: hvd.alltoall(
+                inp["a2av"], splits=too_many[1:]))})
+        bobj, gobj = collective_objects(rank)
+        out["bcast_object"] = repr(hvd.broadcast_object(bobj, n - 1))
+        out["gather_object"] = repr(hvd.allgather_object(gobj))
+        out["homogeneous"] = hvd.is_homogeneous()
+        np.savez(out_path, **{k: np.asarray(v) for k, v in out.items()})
+    finally:
+        hvd.shutdown()
+
+
+def _collectives_rank_on_card(out_path: str) -> None:
+    _collectives_rank(out_path, device=None)
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-def run_world(rank_main: str, tmp: Path, size: int = 2) -> list:
-    """Run ``rank_main(out_path)``, a function of this module, in each rank
-    of one gloo world of ``size`` processes; returns each rank's saved
-    arrays."""
+def spawn_world(argv_of, size: int) -> list:
+    """Run the command ``argv_of(rank)`` in each rank of one world of
+    ``size`` processes, with the environment a launcher sets (a free local
+    port, ``LOCAL_RANK`` = rank); returns each rank's output, after
+    checking that every rank exited 0."""
     port = _free_port()
     procs = []
     for rank in range(size):
@@ -202,12 +295,9 @@ def run_world(rank_main: str, tmp: Path, size: int = 2) -> list:
                    PYTHONPATH=os.pathsep.join(
                        [str(REPO), str(REPO / "tests"),
                         os.environ.get("PYTHONPATH", "")]))
-        code = ("import sys, test_torch_world2 as w; "
-                f"w.{rank_main}(sys.argv[1])")
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", code, str(tmp / f"rank{rank}.npz")],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+            argv_of(rank), env=env, cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
     logs = []
     try:
         for p in procs:
@@ -219,6 +309,18 @@ def run_world(rank_main: str, tmp: Path, size: int = 2) -> list:
                 p.wait()
     for rank, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {rank} failed:\n{log}"
+    return logs
+
+
+def run_world(rank_main: str, tmp: Path, size: int = 2,
+              module: str = "test_torch_world2") -> list:
+    """Run ``rank_main(out_path)``, a function of the JAX-free test module
+    ``module``, in each rank of one world of ``size`` processes (gloo, or
+    NCCL where ``rank_main`` starts one); returns each rank's saved
+    arrays."""
+    code = f"import sys, {module} as w; w.{rank_main}(sys.argv[1])"
+    spawn_world(lambda rank: [sys.executable, "-c", code,
+                              str(tmp / f"rank{rank}.npz")], size)
     return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(size)]
 
 
