@@ -28,10 +28,23 @@ Phases, each of which exits non-zero on failure:
 6. trainer: data-parallel TransformerLM training at the full width of the
    repo's ``TransformerConfig`` defaults with ``attn_mode="ulysses"``, through
    ``init`` (NCCL), ``broadcast_parameters`` and
-   ``DistributedOptimizer(Adam)``, for 5 steps on 8 x 2048 tokens; the loss
-   must be finite and fall, and every kernel must have been launched
-   ``num_layers x steps`` times. One more step then runs under
-   ``torch.profiler``, which prints its device time by kernel;
+   ``DistributedOptimizer(Adam)``, whose gradient hooks start each bucket's
+   allreduce during the backward pass, for 5 steps on 8 x 2048 tokens; the
+   loss must be finite and fall, every kernel must have been launched
+   ``num_layers x steps`` times, the 46.4 M float32 parameters must make at
+   least 3 buckets at the default ``HVD_BUCKET_BYTES``, and every step must
+   have started at least one bucket before ``backward()`` returned. One
+   more step then runs under ``torch.profiler``, which prints its device
+   time by kernel and whether an NCCL kernel ran before the backward pass's
+   last kernel ended. Then a second run from the same initial weights,
+   ``backward_passes_per_step=2`` with the token embedding on the sparse
+   path (``sparse_gradient_paths=["^embed\\."]``, ``sparse_max_rows`` 8 x
+   2048): 10 backward passes, one on each 4 x 2048 half of the batch in
+   turn; the loss must be finite and fall, every kernel be launched
+   ``num_layers x passes`` times, every odd pass leave the parameters as
+   they were, and the first full step agree with one plain Adam step on the
+   mean of the same two halves' gradients within ``K2_AGREEMENT`` of the
+   parameters' norm;
 7. long context, in a fresh process of its own: the long-context twin
    (``horovod_tpu_torch.examples.long_context_lm --model full``) at the full
    width of the repo's ``TransformerConfig`` defaults over 1 x 16384
@@ -69,8 +82,11 @@ Phases, each of which exits non-zero on failure:
    float64 measured on both (``CONDITIONING_CASES``); the MNIST twin's
    smoke epoch, whose step loss must fall.
 
-The last lines are one ``{"kernels": [...]}`` JSON object, the card's
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are a ``{"trainer": {"hooks": ..., "k2_sparse": ...}}`` JSON
+object (each run's step time, tokens/s, peak memory, losses and buckets,
+with the per-step count of buckets started during the backward pass), one
+``{"kernels": [...]}`` JSON object, the card's ``nvidia-smi`` name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -537,7 +553,8 @@ def _train_step(model, opt, tokens) -> float:
     from horovod_tpu_torch.models import lm_loss
     opt.zero_grad()
     loss = lm_loss(model(tokens), tokens)
-    loss.backward()
+    with torch.profiler.record_function("backward"):  # a profile's marker
+        loss.backward()
     opt.step()
     return loss.item()
 
@@ -559,11 +576,16 @@ PROFILE_KINDS = (
 )
 
 
-def _profile_step(step) -> dict:
+def _profile_step(step, overlap: bool = False) -> dict:
     """One more training step under ``torch.profiler``: device time by
     kernel, by kind of work (``PROFILE_KINDS``), and the device's busy
-    share of the step's wall time. Returns those numbers."""
+    share of the step's wall time. With ``overlap``, also whether the
+    gradient allreduce's NCCL kernels started before the backward pass's
+    last kernel ended (``testing.backward_overlap``). Returns those
+    numbers."""
+    import tempfile
     from torch.profiler import ProfilerActivity, profile
+    from horovod_tpu_torch import testing
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -571,6 +593,13 @@ def _profile_step(step) -> dict:
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    found = None
+    if overlap:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            found = testing.backward_overlap(path)
+        print(f"[profile] backward pass and gradient allreduce: {found}")
     # device kernels and copies; user annotations (e.g. "Optimizer.step")
     # span kernels already counted
     events = [e for e in prof.key_averages()
@@ -593,8 +622,15 @@ def _profile_step(step) -> dict:
     for kind, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
         print(f"[profile] by kind: {ms:8.3f} ms x{n:<5d} "
               f"({100 * ms / busy_ms:.1f} % of busy) {kind}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "overlap": found,
             "kinds": {k: ms for k, (ms, _) in kinds.items()}}
+
+
+def _bucket_report(opt) -> dict:
+    stats = opt.stats
+    return {"buckets": len(stats["bucket_bytes"]),
+            "bucket_mb": [round(b / 1e6, 3) for b in stats["bucket_bytes"]],
+            "started_in_backward": list(stats["started_in_backward"])}
 
 
 def phase_trainer(dev):
@@ -622,8 +658,10 @@ def phase_trainer(dev):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     launches = dict(flash.launches)
-    _profile_step(lambda: _train_step(model, opt, tokens))
-    hvd.shutdown()
+    buckets = _bucket_report(opt)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile = _profile_step(lambda: _train_step(model, opt, tokens),
+                            overlap=True)
     steady = sum(step_s[1:]) / (STEPS - 1)
     print(f"[trainer] TransformerLM {n_params / 1e6:.1f} M params, "
           f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
@@ -633,15 +671,140 @@ def phase_trainer(dev):
     print(f"[trainer] step time {steady * 1e3:.1f} ms (mean of steps 2-"
           f"{STEPS}; step 1 {step_s[0] * 1e3:.1f} ms), "
           f"{BATCH * SEQ / steady:.0f} tokens/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
-          f"{torch.cuda.get_device_name(0)}")
+          f"{peak:.2f} GiB on {torch.cuda.get_device_name(0)}")
+    print(f"[trainer] gradient buckets {buckets['bucket_mb']} MB; buckets "
+          "started by the gradient hooks before backward() returned, per "
+          f"step: {buckets['started_in_backward']}")
     print(f"[trainer] kernel launches {launches}")
     require(all(math.isfinite(x) for x in losses), "loss is not finite")
     require(losses[-1] < losses[0], "loss did not fall")
     want = cfg.num_layers * STEPS
     require(all(v == want for v in launches.values()),
             f"launch counts {launches}, want {want} each")
-    return launches
+    require(buckets["buckets"] >= 3,
+            f"{buckets['buckets']} gradient buckets, want at least 3")
+    require(min(buckets["started_in_backward"]) >= 1,
+            "a step started no bucket before backward() returned")
+    del model, opt
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    run = {"step_ms": steady * 1e3, "tokens_per_s": BATCH * SEQ / steady,
+           "peak_memory_gib": peak, "losses": losses, "step_s": step_s,
+           "profile": profile, **buckets}
+    k2, k2_launches = phase_trainer_k2(dev)
+    return launches, k2_launches, {"hooks": run, "k2_sparse": k2}
+
+
+K2_AGREEMENT = 1e-5  # relative, the parameters' norm
+
+
+def _lm_grads(model, tokens) -> tuple[list, float]:
+    from horovod_tpu_torch.models import lm_loss
+    model.zero_grad()
+    loss = lm_loss(model(tokens), tokens)
+    loss.backward()
+    return [p.grad.clone() for p in model.parameters()], loss.item()
+
+
+def _rel_diff(params, ref) -> float:
+    num = sum((p.detach().float() - q.float()).pow(2).sum()
+              for p, q in zip(params, ref))
+    return math.sqrt(num.item() / sum(q.float().pow(2).sum()
+                                      for q in ref).item())
+
+
+def phase_trainer_k2(dev):
+    """The trainer again from the same initial weights, through
+    ``DistributedOptimizer(backward_passes_per_step=2)`` with the token
+    embedding on the sparse path: 2 x STEPS backward passes, one on each
+    half of the batch. Every odd pass leaves the parameters as they were;
+    the first full step agrees with one plain Adam step on the mean of the
+    same two halves' gradients."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import TransformerConfig, TransformerLM
+    from horovod_tpu_torch.ops import flash
+    hvd.init()
+    cfg = TransformerConfig(attn_mode="ulysses")
+    tokens = torch.from_numpy(
+        synthetic_tokens(BATCH, SEQ, cfg.vocab_size, 0)).to(dev)
+    halves = tokens.chunk(2)
+    model = TransformerLM(cfg, device=dev)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    # the dense reference: one Adam step on the mean of the halves' grads
+    ref = TransformerLM(cfg, device=dev)
+    ref.load_state_dict(model.state_dict())
+    g1, _ = _lm_grads(ref, halves[0])
+    g2, _ = _lm_grads(ref, halves[1])
+    ref_opt = torch.optim.Adam(ref.parameters(), lr=1e-3)
+    for p, a, b in zip(ref.parameters(), g1, g2):
+        p.grad = a + (b - a) / 2  # MultiSteps' running mean of two
+    ref_opt.step()
+    want = [p.detach().clone() for p in ref.parameters()]
+    start = [p.detach().clone() for p in model.parameters()]
+    del ref, ref_opt, g1, g2
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-3),
+        named_parameters=model.named_parameters(),
+        backward_passes_per_step=2, sparse_gradient_paths=["^embed\\."],
+        sparse_max_rows=BATCH * SEQ)
+    require(opt.stats["sparse_rows"] == [BATCH * SEQ],
+            "the token embedding is not on the sparse path")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    losses, pass_s, agreement = [], [], None
+    for i in range(2 * STEPS):
+        before = ([p.detach().clone() for p in model.parameters()]
+                  if i % 2 == 0 else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(_train_step(model, opt, halves[i % 2]))
+        torch.cuda.synchronize()
+        pass_s.append(time.perf_counter() - t0)
+        if before is not None:
+            require(all(torch.equal(p, q) for p, q in
+                        zip(model.parameters(), before)),
+                    f"pass {i + 1} (a folding pass) changed the parameters")
+        if i == 1:
+            agreement = _rel_diff(model.parameters(), want)
+            moved = _rel_diff(want, start)
+    launches = dict(flash.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    buckets = _bucket_report(opt)
+    del model, opt, want, start
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    step_s = [pass_s[i] + pass_s[i + 1] for i in range(0, 2 * STEPS, 2)]
+    steady = sum(step_s[1:]) / (STEPS - 1)
+    step_losses = [(losses[i] + losses[i + 1]) / 2
+                   for i in range(0, 2 * STEPS, 2)]
+    print(f"[trainer k=2] backward_passes_per_step=2, embed.weight on the "
+          f"sparse path ({BATCH * SEQ} rows); {2 * STEPS} passes of "
+          f"{BATCH // 2} x {SEQ} tokens")
+    print(f"[trainer k=2] pass losses {['%.4f' % x for x in losses]}")
+    print(f"[trainer k=2] step time {steady * 1e3:.1f} ms (two passes; mean "
+          f"of steps 2-{STEPS}; step 1 {step_s[0] * 1e3:.1f} ms), "
+          f"{BATCH * SEQ / steady:.0f} tokens/s, peak memory {peak:.2f} GiB")
+    print(f"[trainer k=2] first step against one Adam step on the mean of "
+          f"the two halves' gradients: relative difference {agreement:.3e} "
+          f"of the parameters' norm (limit {K2_AGREEMENT:g}; the step "
+          f"itself moved them {moved:.3e})")
+    print(f"[trainer k=2] buckets started before backward() returned, per "
+          f"step: {buckets['started_in_backward']}; kernel launches "
+          f"{launches}")
+    require(all(math.isfinite(x) for x in losses), "k=2: loss is not finite")
+    require(step_losses[-1] < step_losses[0], "k=2: loss did not fall")
+    want_launches = cfg.num_layers * 2 * STEPS
+    require(all(v == want_launches for v in launches.values()),
+            f"k=2: launch counts {launches}, want {want_launches} each")
+    require(agreement <= K2_AGREEMENT,
+            f"k=2: first step {agreement:.3e} from the dense mean step")
+    require(len(buckets["started_in_backward"]) == STEPS
+            and min(buckets["started_in_backward"]) >= 1,
+            "k=2: a step started no bucket before backward() returned")
+    return {"step_ms": steady * 1e3, "tokens_per_s": BATCH * SEQ / steady,
+            "peak_memory_gib": peak, "losses": losses, "pass_s": pass_s,
+            "agreement": agreement, "step_moved": moved, **buckets}, launches
 
 
 # The long-context phase's agreement of the three modes' first-step logits
@@ -1040,7 +1203,7 @@ def convnet_twins(dev) -> dict:
     launches = dict(flash.launches)
     for key, (_, opt) in kept.items():
         res = out[key]
-        res["sync_ms"] = time_ms(opt.synchronize, 20)
+        res["sync_ms"] = time_ms(lambda: _sync_again(opt), 20)
         res["sgd_ms"] = time_ms(opt.optimizer.step, 20)
         print(f"[convnets] {key}: the sync layer alone (DistributedOptimizer."
               f"synchronize, {res['num_param_tensors']} gradients, world 1) "
@@ -1055,6 +1218,15 @@ def convnet_twins(dev) -> dict:
               f"({100 * res['busy_share']:.1f} %)")
     hvd.shutdown()
     return {"runs": out, "launches": launches}
+
+
+def _sync_again(opt) -> None:
+    """The optimizer's whole reduction once more: ``synchronize()`` does
+    nothing a second time before ``step()``, so clear its mark before, and
+    after, so that the next backward pass's hooks start buckets again."""
+    opt._synced = False
+    opt.synchronize()
+    opt._synced = False
 
 
 def run_child(flag: str, what: str) -> dict:
@@ -1118,13 +1290,14 @@ def main(argv) -> int:
     edges = phase_tile_edges(dev)
     rows = phase_kernels(dev)
     phase_reference(dev)
-    launches = phase_trainer(dev)
+    launches, k2_launches, trainer = phase_trainer(dev)
     long_ctx = phase_long_context()
     patterns = phase_ring_patterns(dev)
     convnets = phase_convnets(dev)
     for row in rows:
         name = row["name"]
         row["launches"] = launches[name]
+        row["launches_k2_sparse"] = k2_launches[name]
         row["launches_long_context"] = {
             mode: res["launches_per_step"][-1][name]
             for mode, res in long_ctx.items()}
@@ -1140,6 +1313,7 @@ def main(argv) -> int:
         "img_sec", "step_ms", "peak_memory_gib", "losses", "profile",
         "busy_share", "sync_ms", "sgd_ms")
         if key in v} for k, v in convnets.items()}}))
+    print(json.dumps({"trainer": trainer}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -18,17 +18,21 @@ from .callbacks import average_metrics, metric_average
 from .exceptions import HorovodInternalError, HostsUpdatedInterrupt
 from .functions import broadcast_optimizer_state, broadcast_parameters
 from .ops.collectives import (Handle, allgather, allgather_async,
-                              allgather_object, allreduce, alltoall, barrier,
-                              broadcast, broadcast_async, broadcast_object,
-                              grouped_allreduce, grouped_allreduce_async,
-                              grouped_broadcast, grouped_broadcast_async,
-                              reducescatter)
+                              allgather_object, allreduce, allreduce_async,
+                              alltoall, barrier, broadcast, broadcast_async,
+                              broadcast_object, grouped_allreduce,
+                              grouped_allreduce_async, grouped_broadcast,
+                              grouped_broadcast_async, poll, reducescatter,
+                              synchronize)
 from .ops.compression import Compression, Compressor
 from .ops.reduce_ops import (Adasum, Average, Max, Min, Product, ReduceOp,
                              Sum)
-from .optim import DistributedOptimizer
+from .ops.sparse import (SparseRows, sparse_allreduce, sparse_allreduce_async,
+                         sparse_allreduce_to_dense)
+from .optim import DistributedOptimizer, grad, value_and_grad
 from .models.sync_batch_norm import SyncBatchNorm
-from .process_sets import ProcessSet, add_process_set, global_process_set
+from .process_sets import (ProcessSet, add_process_set, global_process_set,
+                           remove_process_set)
 from .runtime import (NotInitializedError, cross_rank, cross_size, cuda_built,
                       device, init, is_homogeneous, is_initialized,
                       local_rank, local_size, nccl_built, rank, shutdown,
@@ -37,15 +41,17 @@ from .runtime import (NotInitializedError, cross_rank, cross_size, cuda_built,
 __all__ = [
     "Adasum", "Average", "Compression", "Compressor", "DistributedOptimizer",
     "Handle", "HorovodInternalError", "HostsUpdatedInterrupt", "Max", "Min",
-    "NotInitializedError", "ProcessSet", "Product", "ReduceOp", "Sum",
-    "SyncBatchNorm", "add_process_set", "allgather", "allgather_async",
-    "allgather_object", "allreduce", "alltoall", "average_metrics",
-    "barrier", "broadcast", "broadcast_async", "broadcast_object",
-    "broadcast_optimizer_state", "broadcast_parameters", "callbacks",
-    "cross_rank", "cross_size", "cuda_built", "data", "device", "exceptions",
-    "global_process_set", "grouped_allreduce", "grouped_allreduce_async",
-    "grouped_broadcast", "grouped_broadcast_async", "init",
-    "is_homogeneous", "is_initialized", "local_rank", "local_size",
-    "metric_average", "nccl_built", "rank", "reducescatter", "shutdown",
-    "size", "tpu_built", "xla_built",
+    "NotInitializedError", "ProcessSet", "Product", "ReduceOp", "SparseRows",
+    "Sum", "SyncBatchNorm", "add_process_set", "allgather", "allgather_async",
+    "allgather_object", "allreduce", "allreduce_async", "alltoall",
+    "average_metrics", "barrier", "broadcast", "broadcast_async",
+    "broadcast_object", "broadcast_optimizer_state", "broadcast_parameters",
+    "callbacks", "cross_rank", "cross_size", "cuda_built", "data", "device",
+    "exceptions", "global_process_set", "grad", "grouped_allreduce",
+    "grouped_allreduce_async", "grouped_broadcast", "grouped_broadcast_async",
+    "init", "is_homogeneous", "is_initialized", "local_rank", "local_size",
+    "metric_average", "nccl_built", "poll", "rank", "reducescatter",
+    "remove_process_set", "shutdown", "size", "sparse_allreduce",
+    "sparse_allreduce_async", "sparse_allreduce_to_dense", "synchronize",
+    "tpu_built", "value_and_grad", "xla_built",
 ]

@@ -5,7 +5,8 @@ The port of ``horovod_tpu/runtime.py``: one process per card, joined by
 The world comes from the launcher's standard environment: ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` and
 ``MASTER_PORT``. A process started without them is a world of one, whose
-rendezvous store listens on a port the OS picks.
+rendezvous store listens on a port the OS picks. Each :func:`init` starts a
+fresh process-set table (``process_sets.py``).
 """
 
 from __future__ import annotations
@@ -13,9 +14,13 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+from typing import Any, Sequence
 
 import torch
 import torch.distributed as dist
+
+from .utils import envs
+from .utils import logging as hvd_logging
 
 
 class NotInitializedError(RuntimeError):
@@ -30,15 +35,20 @@ class _RuntimeState:
     local_rank: int
     local_size: int
     owns_group: bool  # init() created the process group, shutdown() ends it
+    process_set_table: Any = None  # process_sets.ProcessSetTable
     homogeneous: bool = True  # every node runs the same number of ranks
 
 
 _state: _RuntimeState | None = None
 
 
-def init(device: str | torch.device | None = None) -> None:
+def init(device: str | torch.device | None = None,
+         process_sets: Sequence[Sequence[int]] | str | None = None) -> None:
     """Join the world (reference ``hvd.init``). ``device`` defaults to the
     card: ``cuda:<LOCAL_RANK>``. Pass ``"cpu"`` for a gloo world on the host.
+    ``process_sets`` is a list of rank lists to register as process sets
+    now (every rank passes the same list), or ``"dynamic"`` to allow
+    ``add_process_set`` later, as ``HVD_DYNAMIC_PROCESS_SETS=1`` does.
     Calling it again while initialized is a no-op."""
     global _state
     if _state is not None:
@@ -80,10 +90,19 @@ def init(device: str | torch.device | None = None) -> None:
     if size > 1:  # one small exchange: each rank knows only its own node
         local_sizes = [None] * size
         dist.all_gather_object(local_sizes, local_size)
+    from .process_sets import ProcessSetTable  # deferred: avoids a cycle
+    table = ProcessSetTable(size)
     _state = _RuntimeState(device=device, rank=dist.get_rank(), size=size,
                            local_rank=local_rank, local_size=local_size,
-                           owns_group=owns,
+                           owns_group=owns, process_set_table=table,
                            homogeneous=len(set(local_sizes)) == 1)
+    table.dynamic_enabled = (process_sets == "dynamic" or envs.get_bool(
+        envs.DYNAMIC_PROCESS_SETS))
+    if process_sets and process_sets != "dynamic":
+        for ranks in process_sets:
+            table.add(list(ranks), force=True)
+    hvd_logging.info("initialized: rank %d of %d on %s (%s)", _state.rank,
+                     size, device, dist.get_backend())
 
 
 def shutdown() -> None:
@@ -91,8 +110,11 @@ def shutdown() -> None:
     global _state
     if _state is None:
         return
-    if _state.owns_group and dist.is_initialized():
-        dist.destroy_process_group()
+    if dist.is_initialized():
+        if _state.process_set_table is not None:
+            _state.process_set_table.clear()
+        if _state.owns_group:
+            dist.destroy_process_group()
     _state = None
 
 
@@ -105,6 +127,11 @@ def _get() -> _RuntimeState:
         raise NotInitializedError(
             "horovod_tpu_torch has not been initialized; call hvd.init()")
     return _state
+
+
+def process_set_table():
+    """This runtime's ``process_sets.ProcessSetTable``."""
+    return _get().process_set_table
 
 
 def device() -> torch.device:

@@ -1,15 +1,20 @@
-"""Card-against-CPU checks of the port's convnets, shared by
-``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+"""Card-against-CPU checks of the port's convnets, and the reading of a
+profiled step's trace, shared by ``chip_smoke.py`` and
+``tests/test_torch_cuda.py``.
 
 :func:`convnet_steps` runs one step of a model from the same weights and
 batch in several (device, compute dtype, mode) settings; :func:`step_errors`
 compares two of them. TF32 is off for the steps: cuDNN's float32
 convolutions use it by default, which would need a 1e-3-scale tolerance.
 :func:`pooling_errors` reads the average pool's backward on channels-last
-tensors.
+tensors. :func:`backward_overlap` reads from a ``torch.profiler`` trace
+whether the gradient allreduce's NCCL kernels ran while the backward pass's
+kernels did.
 """
 
 from __future__ import annotations
+
+import json
 
 import torch
 import torch.nn.functional as F
@@ -127,3 +132,41 @@ def pooling_errors(device, shape=(2, 288, 35, 35)) -> dict:
             memory_format=torch.channels_last))[0]
         errs[name] = ((dx.double().cpu() - want).norm() / want.norm()).item()
     return errs
+
+
+def backward_overlap(trace_path: str, marker: str = "backward") -> dict:
+    """From a ``torch.profiler`` Chrome trace of one step whose backward
+    pass ran inside ``record_function(marker)``: the kernels launched while
+    it ran (by any thread, through the runtime or the driver), every NCCL
+    kernel of the step, and whether the first NCCL kernel started before
+    the last backward kernel ended. Times in microseconds from the start of
+    the first backward kernel; None where the trace has no such kernel."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("name") == marker
+             and e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    nccl = [k for k in kernels if "nccl" in k["name"].lower()]
+    found = {"kernels": 0, "nccl_kernels": len(nccl), "overlap": None}
+    if not spans:
+        return found
+    t0 = spans[0]["ts"]
+    t1 = t0 + spans[0]["dur"]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and t0 <= e["ts"] <= t1
+                and "correlation" in e.get("args", {})}
+    backward = [k for k in kernels if k not in nccl
+                and k.get("args", {}).get("correlation") in launched]
+    if not backward:
+        return found
+    start = min(k["ts"] for k in backward)
+    last_end = max(k["ts"] + k["dur"] for k in backward) - start
+    first_nccl = min(k["ts"] for k in nccl) - start if nccl else None
+    return {**found, "kernels": len(backward),
+            "last_backward_kernel_end_us": last_end,
+            "first_nccl_start_us": first_nccl,
+            "nccl_us_before_backward_end": sum(
+                max(0.0, min(k["ts"] + k["dur"] - start, last_end)
+                    - max(k["ts"] - start, 0.0)) for k in nccl),
+            "overlap": None if first_nccl is None else first_nccl < last_end}

@@ -1,6 +1,6 @@
 """Environment-variable knobs read by the port.
 
-Only the knobs the data-parallel path reads, with the names and defaults of
+Only the knobs the port reads, with the names and defaults of
 ``horovod_tpu/utils/envs.py``. Every knob is spelled ``HVD_<NAME>``; the
 reference Horovod's ``HOROVOD_<NAME>`` spelling is accepted as a fallback.
 """
@@ -11,6 +11,10 @@ import os
 
 FUSION_THRESHOLD = "FUSION_THRESHOLD"  # bytes per fused wire buffer
 BUCKET_BYTES = "BUCKET_BYTES"  # gradient bucket size (0 = whole tree)
+LOG_LEVEL = "LOG_LEVEL"  # trace|debug|info|warning|error|fatal
+LOG_TIMESTAMP = "LOG_TIMESTAMP"  # prefix log lines with the time (default on)
+DYNAMIC_PROCESS_SETS = "DYNAMIC_PROCESS_SETS"  # add_process_set after init
+SPARSE_AS_DENSE = "SPARSE_AS_DENSE"  # sparse gradients take a dense allreduce
 
 _PREFIXES = ("HVD_", "HOROVOD_")
 
@@ -27,6 +31,13 @@ def get(name: str, default: str | None = None) -> str | None:
         if val is not None:
             return val
     return default
+
+
+def get_bool(name: str, default: bool = False) -> bool:
+    val = get(name)
+    if val is None:
+        return default
+    return val.strip().lower() in ("1", "true", "yes", "on")
 
 
 def get_int(name: str, default: int) -> int:

@@ -19,8 +19,9 @@ import pytest
 import torch
 
 import horovod_tpu_torch as thvd
-from test_torch_world2 import (A2AV_ROWS, a2av_splits, collective_inputs,
-                               collective_objects, run_world)
+from test_torch_world2 import (A2AV_ROWS, ALLREDUCE_CASES, a2av_splits,
+                               collective_inputs, collective_objects,
+                               run_world)
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
@@ -57,6 +58,30 @@ def test_allgather_matches_jax(hvd, world, pset, key):
     want = hvd.allgather(_bundle(hvd, pset, key, n), process_set=pset)
     for res in ranks:
         _same(res[key], want)
+
+
+@pytest.mark.parametrize("key", list(ALLREDUCE_CASES))
+def test_allreduce_matches_jax(hvd, world, pset, key):
+    """Prescale and postscale (on int32 they promote to float32: C1), MIN,
+    MAX, PRODUCT, and bools (SUM counts in int32: C2): the same dtype and
+    values as the reference, bitwise."""
+    n, ranks = world
+    src, op, kw = ALLREDUCE_CASES[key]
+    want = hvd.allreduce(_bundle(hvd, pset, src, n), op=getattr(hvd, op),
+                         process_set=pset, **kw)
+    for res in ranks:
+        _same(res[key], want)
+
+
+def test_poll_sees_an_unfinished_handle(world):
+    """Rank 0 starts an allreduce a second before the others: ``poll``
+    says False, then True once ``synchronize`` has returned the sum."""
+    n, ranks = world
+    total = sum(collective_inputs(n)["red"])
+    assert ranks[0]["polls"].tolist() == [False, True]
+    for res in ranks:
+        assert bool(res["polls"][1])
+        _same(res["polled"], total)
 
 
 def test_allgather_async_matches_allgather(world):
@@ -114,11 +139,14 @@ def test_broadcast_async_matches_jax(hvd, world, pset):
         b("bad_int"), op=hvd.Average, process_set=ps)),
     ("err_a2av_sum", lambda hvd, b, ps, n: hvd.alltoall(
         b("a2av"), splits=np.full(n, A2AV_ROWS), process_set=ps)),
+    ("err_rs_bool", lambda hvd, b, ps, n: hvd.reducescatter(
+        b("red_bool"), process_set=ps)),
 ])
 def test_errors_match_jax(hvd, world, pset, key, call):
     """dim 0 not divisible by the world size (alltoall, reducescatter),
-    Average on ints, splits that sum past dim 0: the same exception type
-    and text on every rank as the reference raises."""
+    Average on ints, splits that sum past dim 0, bools to reducescatter
+    (C2): the same exception type and text on every rank as the reference
+    raises."""
     n, ranks = world
     with pytest.raises((ValueError, TypeError)) as err:
         call(hvd, lambda k: _bundle(hvd, pset, k, n), pset, n)

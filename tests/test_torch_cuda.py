@@ -386,11 +386,14 @@ def test_cuda_nccl_world4_attention_matches_one_card(nccl_attention,
 def test_cuda_nccl_world4_collectives_are_exact(four_cards, tmp_path):
     """``allgather`` (ragged, int32, 0-d, async), even and uneven
     ``alltoall``, ``reducescatter`` (SUM, AVERAGE, int32),
-    ``broadcast_async`` and the object collectives over NCCL at a world of
-    four, each against numpy on the same integer-valued inputs: bitwise;
-    the error cases with the gloo world's text."""
-    from test_torch_world2 import (A2AV_ROWS, a2av_splits, collective_inputs,
-                                   collective_objects, run_world)
+    ``broadcast_async``, the object collectives, and allreduce with scale
+    factors (int32 promotes to float32), MIN, MAX, PRODUCT and bools (SUM
+    and PRODUCT count in int32) over NCCL at a world of four, each against
+    numpy on the same integer-valued inputs: bitwise; the error cases with
+    the gloo world's text."""
+    from test_torch_world2 import (A2AV_ROWS, ALLREDUCE_CASES, a2av_splits,
+                                   collective_inputs, collective_objects,
+                                   run_world)
     n = 4
     ranks = run_world("_collectives_rank_on_card", tmp_path, size=n)
     inp, smat = collective_inputs(n), a2av_splits(n)
@@ -431,6 +434,31 @@ def test_cuda_nccl_world4_collectives_are_exact(four_cards, tmp_path):
         assert str(res["bcast_object"]) == repr(collective_objects(n - 1)[0])
         assert str(res["gather_object"]) == repr(gathered)
         assert bool(res["homogeneous"])
+        for key, (src, op, kw) in ALLREDUCE_CASES.items():
+            same(res[key], _numpy_allreduce(inp[src], op, n, **kw))
+        assert str(res["err_rs_bool"]).startswith(
+            "TypeError: add does not accept dtype bool")
+    assert ranks[0]["polls"].tolist() == [False, True]
+
+
+def _numpy_allreduce(xs, op, n, prescale_factor=1.0, postscale_factor=1.0):
+    """The reference's allreduce of the ranks' arrays ``xs`` in numpy, with
+    its dtypes: a scale factor makes an integer float32, a bool SUM or
+    PRODUCT counts in int32, MIN and MAX of bools stay bool, and an
+    AVERAGE of bools is a float32 share."""
+    f32 = np.float32
+    stack = np.stack(xs)
+    if stack.dtype == bool and op not in ("Min", "Max"):
+        stack = stack.astype(f32 if op == "Average" else np.int32)
+    if prescale_factor != 1.0:
+        stack = stack.astype(f32) * f32(prescale_factor)
+    out = {"Sum": lambda: stack.sum(0, dtype=stack.dtype),
+           "Average": lambda: stack.sum(0, dtype=stack.dtype) / f32(n),
+           "Min": lambda: stack.min(0), "Max": lambda: stack.max(0),
+           "Product": lambda: stack.prod(0, dtype=stack.dtype)}[op]()
+    if postscale_factor != 1.0:
+        out = out.astype(f32) * f32(postscale_factor)
+    return out
 
 
 @pytest.mark.cuda
@@ -445,3 +473,161 @@ def test_cuda_nccl_world4_long_context_twin(four_cards, attn):
     assert "attention over 4 ranks, seq=65536 (16384 tokens/rank)" in logs[0]
     assert "OK" in logs[0], logs[0]
     print(logs[0])
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_process_sets_are_exact(four_cards, tmp_path):
+    """The sets [0, 2], [1, 2, 3], then [0, 1] and [2, 3] reducing at the
+    same time, over NCCL groups at a world of four: allreduce (SUM, MIN,
+    MAX, PRODUCT, int32), grouped allreduce, broadcast from a set's last
+    member, ragged allgather, even alltoall and reducescatter, each against
+    numpy on the members' integer-valued inputs, bitwise; a non-member
+    raises."""
+    from test_torch_process_sets import PSETS, pset_inputs
+    from test_torch_world2 import run_world
+    n = 4
+    ranks = run_world("_process_sets_rank_on_card", tmp_path, size=n,
+                      module="test_torch_process_sets")
+
+    def same(got, want):
+        want = np.asarray(want)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+    for s, members in enumerate(PSETS[n]):
+        inp, k = pset_inputs(n, s), len(members)
+        x = np.stack(inp["x"])
+        for r in range(n):
+            res, pre = ranks[r], f"s{s}_"
+            if r not in members:
+                assert "is not a member" in str(res[pre + "err"])
+                continue
+            i = members.index(r)
+            same(res[pre + "ar_sum"], x.sum(0))
+            same(res[pre + "ar_min"], x.min(0))
+            same(res[pre + "ar_max"], x.max(0))
+            same(res[pre + "ar_prod"], np.stack(inp["small"]).prod(0))
+            same(res[pre + "ar_int"], np.stack(inp["xi"]).sum(
+                0, dtype=np.int32))
+            same(res[pre + "grouped"], np.concatenate(
+                [x.sum(0).ravel(),
+                 np.stack(inp["xi"]).sum(0).astype(np.float32)]))
+            same(res[pre + "bcast"], inp["x"][-1])
+            same(res[pre + "bcast_async"], inp["xi"][-1])
+            same(res[pre + "ag"], np.concatenate(inp["ag"]))
+            rows = 2
+            same(res[pre + "a2a"], np.concatenate(
+                [a[i * rows:(i + 1) * rows] for a in inp["a2a"]]))
+            same(res[pre + "rs_sum"],
+                 sum(inp["rs"])[i * rows:(i + 1) * rows])
+            same(res[pre + "bparams_p"], inp["p"][-1])
+            assert str(res[pre + "objects"]) == repr([(m, s) for m in members])
+            assert k == len(members)
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_backward_passes_per_step(four_cards, cuda_device,
+                                                   tmp_path):
+    """The hook-driven optimizer over NCCL at a world of four with
+    ``backward_passes_per_step=2``: each k-th pass reduces the mean of the
+    two passes over the four ranks, and Adam steps as it does on one card
+    given that mean (rtol 1e-6; the parameters are unchanged on the passes
+    that fold)."""
+    from test_torch_optimizer import (MS_LR, SHAPES, ms_grads, ms_params,
+                                      run_world)
+    ranks = run_world("_multisteps_rank_on_card", tmp_path, size=4,
+                      module="test_torch_optimizer")
+    grads = ms_grads(2, 4)
+    ps = {k: torch.nn.Parameter(torch.from_numpy(v).to(cuda_device))
+          for k, v in ms_params().items()}
+    opt = torch.optim.Adam(ps.values(), lr=MS_LR)
+    before = ms_params()
+    for i in range(4):
+        if i % 2 == 1:
+            for k in SHAPES:
+                mean = np.mean([grads[j][r][k] for j in (i - 1, i)
+                                for r in range(4)], axis=0)
+                ps[k].grad = torch.from_numpy(mean).to(cuda_device)
+                for res in ranks:
+                    np.testing.assert_allclose(res[f"ms2_grad{i}_{k}"], mean,
+                                               rtol=1e-6, atol=1e-7)
+            opt.step()
+        for res in ranks:
+            for k in SHAPES:
+                want = (ps[k].detach().cpu().numpy() if i % 2 else before[k])
+                np.testing.assert_allclose(res[f"ms2_pass{i}_{k}"], want,
+                                           rtol=1e-6, atol=1e-7)
+        if i % 2:
+            before = {k: p.detach().cpu().numpy() for k, p in ps.items()}
+    for res in ranks:
+        assert res["ms2_in_backward"].tolist() == [1, 1]
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_trainer_overlap(four_cards, tmp_path):
+    """Four cards train the full-width TransformerLM data-parallel (8 x
+    2048 tokens a card); every rank's loss is finite, and rank 0's profiled
+    step says whether the first gradient bucket's NCCL kernel started
+    before the backward pass's last kernel ended. That reading is printed
+    and recorded, not held to a limit."""
+    from test_torch_optimizer import run_world
+    ranks = run_world("_overlap_rank_on_card", tmp_path, size=4,
+                      module="test_torch_optimizer")
+    for r, res in enumerate(ranks):
+        assert np.isfinite(res["losses"]).all(), r
+        print(f"rank {r}: step {float(res['step_ms']):.2f} ms, "
+              f"{int(res['buckets'])} buckets, started in backward "
+              f"{res['started_in_backward'].tolist()}, losses "
+              f"{res['losses'].tolist()}")
+    print(f"rank 0 overlap: {ranks[0]['overlap']}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_nccl_world4_sync_batch_norm_matches_one_card(
+        four_cards, cuda_device, tmp_path_factory, dtype):
+    """``SyncBatchNorm`` over NCCL at a world of four, each card with a
+    quarter of the batch, against ``BatchNorm`` on one card over the whole
+    batch: output and dx per quarter, the running averages on every rank,
+    and dscale and dbias summed over the ranks (each rank's are its
+    quarter's share, which the gradient sync adds up) (float32 rtol 1e-5
+    atol 1e-5, running averages 1e-6/1e-7; bf16 output and dx 1e-2, dscale
+    and dbias 1e-3, running averages 1e-5/1e-6)."""
+    from horovod_tpu_torch.models import BatchNorm
+    from test_torch_world2 import (BN_SHAPE, bn_inputs, bn_step,
+                                   run_world)
+    ranks = _sync_bn_world4(tmp_path_factory)
+    inp = bn_inputs()
+    x = torch.from_numpy(inp["x"]).to(cuda_device, getattr(torch, dtype))
+    want = bn_step(BatchNorm(BN_SHAPE[-1], dtype=x.dtype,
+                             device=cuda_device), x, inp["ct"], inp)
+    tols = {"float32": {"y": 1e-5, "dx": 1e-5, "dscale": 1e-5,
+                        "dbias": 1e-5, "mean": 1e-6, "var": 1e-6},
+            "bfloat16": {"y": 1e-2, "dx": 1e-2, "dscale": 1e-3,
+                         "dbias": 1e-3, "mean": 1e-5, "var": 1e-5}}[dtype]
+    quarter = BN_SHAPE[0] // 4
+    for r, res in enumerate(ranks):
+        mine = slice(r * quarter, (r + 1) * quarter)
+        for k, tol in tols.items():
+            if k in ("dscale", "dbias"):
+                got = sum(other[f"{dtype}_{k}"] for other in ranks)
+            else:
+                got = res[f"{dtype}_{k}"]
+            ref = want[k][mine] if k in ("y", "dx") else want[k]
+            atol = tol / 10 if k in ("mean", "var") else tol
+            np.testing.assert_allclose(got, ref, rtol=tol, atol=atol,
+                                       err_msg=f"rank {r} {k}")
+
+
+_SYNC_BN_WORLD4 = {}
+
+
+def _sync_bn_world4(tmp_path_factory):
+    """Every rank's SyncBatchNorm results from one NCCL world of four, run
+    once for both dtypes."""
+    if not _SYNC_BN_WORLD4:
+        from test_torch_world2 import run_world
+        _SYNC_BN_WORLD4["ranks"] = run_world(
+            "_sync_bn_rank_on_card", tmp_path_factory.mktemp("sync_bn4"),
+            size=4)
+    return _SYNC_BN_WORLD4["ranks"]

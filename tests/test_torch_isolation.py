@@ -14,7 +14,8 @@ from horovod_tpu_torch.ops import _build, flash
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 PORT_FILES = sorted((REPO / "horovod_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "convnet_host_probe.py"]
+    REPO / "chip_smoke.py", REPO / "convnet_host_probe.py",
+    REPO / "trainer_turns.py"]
 
 
 def _imported_modules(path: Path):

@@ -18,9 +18,11 @@ side needs JAX (``test_torch_sync_bn.py``, ``test_torch_training_utils.py``):
 """
 
 import os
+import signal
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -108,34 +110,40 @@ def bn_step(norm, x, ct, inp) -> dict:
     norm.train()
     xt = x.permute(0, 3, 1, 2).detach().requires_grad_()
     y = norm(xt)
-    (y.float() * torch.from_numpy(ct).permute(0, 3, 1, 2)).sum().backward()
-    nhwc = lambda t: t.detach().float().permute(0, 2, 3, 1).numpy()
+    (y.float() * torch.from_numpy(ct).to(y.device).permute(0, 3, 1, 2)
+     ).sum().backward()
+    nhwc = lambda t: t.detach().float().permute(0, 2, 3, 1).cpu().numpy()
+    host = lambda t: t.detach().cpu().numpy().copy()
     return {"y": nhwc(y), "dx": nhwc(xt.grad),
-            "dscale": norm.weight.grad.numpy(),
-            "dbias": norm.bias.grad.numpy(),
-            "mean": norm.running_mean.numpy().copy(),
-            "var": norm.running_var.numpy().copy()}
+            "dscale": host(norm.weight.grad), "dbias": host(norm.bias.grad),
+            "mean": host(norm.running_mean), "var": host(norm.running_var)}
 
 
-def _sync_bn_rank(out_path: str) -> None:
-    """One rank's half of the batch through ``SyncBatchNorm``."""
+def _sync_bn_rank(out_path: str, device: str | None = "cpu") -> None:
+    """One rank's share of the batch through ``SyncBatchNorm``, on
+    ``device`` (gloo on the CPU; None: NCCL, one card a rank)."""
     import horovod_tpu_torch as hvd
 
-    hvd.init(device="cpu")
+    hvd.init(device=device)
     try:
         rank, inp = hvd.rank(), bn_inputs()
         half = BN_SHAPE[0] // hvd.size()
         mine = slice(rank * half, (rank + 1) * half)
         out = {}
         for dtype in BN_DTYPES:
-            x = torch.from_numpy(inp["x"][mine]).to(getattr(torch, dtype))
+            x = torch.from_numpy(inp["x"][mine]).to(hvd.device(),
+                                                    getattr(torch, dtype))
             norm = hvd.SyncBatchNorm(BN_SHAPE[-1], dtype=x.dtype,
-                                     device="cpu")
+                                     device=hvd.device())
             res = bn_step(norm, x, inp["ct"][mine], inp)
             out.update({f"{dtype}_{k}": v for k, v in res.items()})
         np.savez(out_path, **out)
     finally:
         hvd.shutdown()
+
+
+def _sync_bn_rank_on_card(out_path: str) -> None:
+    _sync_bn_rank(out_path, device=None)
 
 
 # ShardedArrayLoader: 56 rows, global batches of 16 (the trailing 8 rows
@@ -211,7 +219,40 @@ def collective_inputs(n: int) -> dict:
             "rs": [ints((2 * n, 3)) for _ in range(n)],
             "rs_int": [ints((n, 2), np.int32) for _ in range(n)],
             "bad_rows": [ints((2 * n + 1, 2)) for _ in range(n)],
-            "bad_int": [ints((n, 2), np.int32) for _ in range(n)]}
+            "bad_int": [ints((n, 2), np.int32) for _ in range(n)],
+            "red": [ints((3, 2)) for _ in range(n)],
+            "red_int": [ints((3, 2), np.int32) for _ in range(n)],
+            "red_small": [rng.integers(-4, 5, size=(3, 2)).astype(np.float32)
+                          for _ in range(n)],
+            "red_small_int": [rng.integers(-4, 5, size=(3, 2)).astype(
+                np.int32) for _ in range(n)],
+            "red_bool": [rng.integers(0, 2, size=(2 * n,)).astype(bool)
+                         for _ in range(n)]}
+
+
+# The allreduce cases beyond AVERAGE of floats, each (input, op, keywords):
+# the scale factors (an integer input comes back float32), MIN, MAX,
+# PRODUCT (of inputs in [-4, 4], exact over four ranks), and bools (SUM and
+# PRODUCT count in int32, MIN and MAX stay bool, AVERAGE is a float32
+# share). Every result is exact.
+ALLREDUCE_CASES = {
+    "ar_pre_int": ("red_int", "Sum", {"prescale_factor": 2.0}),
+    "ar_post_int": ("red_int", "Sum", {"postscale_factor": 0.5}),
+    "ar_scaled": ("red", "Average", {"prescale_factor": 0.5,
+                                     "postscale_factor": 4.0}),
+    "ar_max_pre_int": ("red_int", "Max", {"prescale_factor": 2.0}),
+    "ar_min": ("red", "Min", {}),
+    "ar_max": ("red", "Max", {}),
+    "ar_min_int": ("red_int", "Min", {}),
+    "ar_max_int": ("red_int", "Max", {}),
+    "ar_prod": ("red_small", "Product", {}),
+    "ar_prod_int": ("red_small_int", "Product", {}),
+    "ar_bool_sum": ("red_bool", "Sum", {}),
+    "ar_bool_min": ("red_bool", "Min", {}),
+    "ar_bool_max": ("red_bool", "Max", {}),
+    "ar_bool_prod": ("red_bool", "Product", {}),
+    "ar_bool_avg": ("red_bool", "Average", {}),
+}
 
 
 def collective_objects(rank: int):
@@ -237,7 +278,14 @@ def _collectives_rank(out_path: str, device: str | None = "cpu") -> None:
         n, rank = hvd.size(), hvd.rank()
         inp = {k: torch.as_tensor(v[rank]).to(hvd.device()) for k, v in
                collective_inputs(n).items()}
-        out = {"ag": hvd.allgather(inp["ag"]),
+        if rank > 0:  # rank 0's handle stays open until the others come
+            time.sleep(1.0)
+        handle = hvd.allreduce_async(inp["red"], op=hvd.Sum)
+        polls = [hvd.poll(handle)]
+        polled = hvd.synchronize(handle)
+        polls.append(handle.poll())
+        out = {"polled": polled,
+               "ag": hvd.allgather(inp["ag"]),
                "ag_int": hvd.allgather(inp["ag_int"]),
                "ag_scalar": hvd.allgather(inp["ag_scalar"]),
                "ag_async": hvd.allgather_async(inp["ag"]).synchronize(),
@@ -250,7 +298,10 @@ def _collectives_rank(out_path: str, device: str | None = "cpu") -> None:
                    inp["a2a"], root_rank=n - 1).synchronize()}
         out["a2av"], out["a2av_recv"] = hvd.alltoall(
             inp["a2av"], splits=a2av_splits(n)[rank])
+        for key, (src, op, kw) in ALLREDUCE_CASES.items():
+            out[key] = hvd.allreduce(inp[src], op=getattr(hvd, op), **kw)
         out = {k: v.cpu().numpy() for k, v in out.items()}
+        out["polls"] = np.asarray(polls)
         too_many = np.full(n, A2AV_ROWS)
         out.update({
             "err_a2a_rows": _raised(lambda: hvd.alltoall(inp["bad_rows"])),
@@ -261,7 +312,9 @@ def _collectives_rank(out_path: str, device: str | None = "cpu") -> None:
             "err_a2av_sum": _raised(lambda: hvd.alltoall(
                 inp["a2av"], splits=too_many)),
             "err_a2av_len": _raised(lambda: hvd.alltoall(
-                inp["a2av"], splits=too_many[1:]))})
+                inp["a2av"], splits=too_many[1:])),
+            "err_rs_bool": _raised(lambda: hvd.reducescatter(
+                inp["red_bool"]))})
         bobj, gobj = collective_objects(rank)
         out["bcast_object"] = repr(hvd.broadcast_object(bobj, n - 1))
         out["gather_object"] = repr(hvd.allgather_object(gobj))
@@ -285,30 +338,43 @@ def spawn_world(argv_of, size: int) -> list:
     """Run the command ``argv_of(rank)`` in each rank of one world of
     ``size`` processes, with the environment a launcher sets (a free local
     port, ``LOCAL_RANK`` = rank); returns each rank's output, after
-    checking that every rank exited 0."""
+    checking that every rank exited 0. A rank still running after
+    ``TIMEOUT_S`` is aborted, and the failure shows where every thread of
+    it was (``PYTHONFAULTHANDLER``)."""
     port = _free_port()
     procs = []
     for rank in range(size):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(size),
                    LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(size),
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   PYTHONFAULTHANDLER="1",
                    PYTHONPATH=os.pathsep.join(
                        [str(REPO), str(REPO / "tests"),
                         os.environ.get("PYTHONPATH", "")]))
         procs.append(subprocess.Popen(
             argv_of(rank), env=env, cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
-    logs = []
+    logs, hung = [], False
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=TIMEOUT_S)[0])
+            try:
+                logs.append(p.communicate(timeout=TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                hung = True
+                for q in procs:
+                    if q.poll() is None:
+                        q.send_signal(signal.SIGABRT)  # stacks, then exit
+                logs.append(p.communicate(timeout=60)[0])
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     for rank, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {rank} failed:\n{log}"
+        assert not hung and p.returncode == 0, (
+            f"rank {rank} {'hung' if hung else 'failed'}:\n{log}\n"
+            + "\n".join(f"--- rank {r}:\n{other[-4000:]}"
+                        for r, other in enumerate(logs) if r != rank))
     return logs
 
 
