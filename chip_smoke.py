@@ -45,7 +45,21 @@ Phases, each of which exits non-zero on failure:
    they were, and the first full step agree with one plain Adam step on the
    mean of the same two halves' gradients within ``K2_AGREEMENT`` of the
    parameters' norm;
-7. long context, in a fresh process of its own: the long-context twin
+7. MoE: the MoE TransformerLM at the same full width with one expert
+   (``TransformerConfig(attn_mode="ulysses", moe_experts=1)``; the expert
+   group is the world of one), bf16, 8 x 2048 tokens, Adam with the
+   reference trainer's ``0.01 * moe_aux_loss()``, 5 steps: the loss must be
+   finite and fall, each block's load-balance loss be exactly 1 (one
+   expert: gate 1, capacity 20480 drops nothing), every kernel be launched
+   ``num_layers x steps`` times, and the first step's logits agree with
+   the dense TransformerLM on the same weights (expert 0 as its MLP) within
+   ``MOE_LOGITS_AGREEMENT``; one profiled step by kind of work (dispatch
+   and combine, GEMMs, flash, copies);
+8. pipeline: the pipeline twin (``examples/pipeline_train.py --model
+   full``: vocab 32000, d_model 512, hidden 2048, 4 residual-MLP blocks, 8
+   x 2048 tokens, bf16) at pp 1 with 4 microbatches for 5 steps: the loss
+   must be finite and fall;
+9. long context, in a fresh process of its own: the long-context twin
    (``horovod_tpu_torch.examples.long_context_lm --model full``) at the full
    width of the repo's ``TransformerConfig`` defaults over 1 x 16384
    tokens, bf16 compute, NCCL world 1, for each of ``ring``,
@@ -55,7 +69,7 @@ Phases, each of which exits non-zero on failure:
    the block even at one rank) at the offsets the schedule gives, and the
    modes' first-step logits on the same weights must agree within
    ``LOGITS_AGREEMENT``; once all three are timed, one profiled step each;
-8. ring patterns: K1, K2 and K3 at bh 8, d 64, bf16 against their plain
+10. ring patterns: K1, K2 and K3 at bh 8, d 64, bf16 against their plain
    versions (computed one bh slice at a time) under the kernels phase's
    per-row limits, at every block (sq, sk, qpos0, kpos0) the long-context
    phase launches (16384 x 16384 at (0, 0); 8192 x 8192 at (0, 0), (8192,
@@ -63,7 +77,7 @@ Phases, each of which exits non-zero on failure:
    causal ring of 4 over 16384 tokens and rank 0 of a zigzag ring of 4
    launch; each kernel timed on the fully-past 4096 x 4096 block, where
    every pair is live;
-9. convnets: the data-parallel convnet path, which runs no kernel of the
+11. convnets: the data-parallel convnet path, which runs no kernel of the
    port (convolutions, pooling and BatchNorm are cuDNN and torch ops, as
    they are XLA's in the JAX package). First, in a fresh process of its
    own, so that no earlier host work slows the host-bound steps: the
@@ -84,8 +98,10 @@ Phases, each of which exits non-zero on failure:
 
 The last lines are a ``{"trainer": {"hooks": ..., "k2_sparse": ...}}`` JSON
 object (each run's step time, tokens/s, peak memory, losses and buckets,
-with the per-step count of buckets started during the backward pass), one
-``{"kernels": [...]}`` JSON object, the card's ``nvidia-smi`` name and power
+with the per-step count of buckets started during the backward pass), a
+``{"moe": ..., "pipeline": ...}`` one, one ``{"kernels": [...]}`` JSON
+object (each kernel's launches on the trainer's, the k=2 run's and the MoE
+run's main path), the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -576,9 +592,10 @@ PROFILE_KINDS = (
 )
 
 
-def _profile_step(step, overlap: bool = False) -> dict:
+def _profile_step(step, overlap: bool = False,
+                  kinds=PROFILE_KINDS) -> dict:
     """One more training step under ``torch.profiler``: device time by
-    kernel, by kind of work (``PROFILE_KINDS``), and the device's busy
+    kernel, by kind of work (``kinds``), and the device's busy
     share of the step's wall time. With ``overlap``, also whether the
     gradient allreduce's NCCL kernels started before the backward pass's
     last kernel ended (``testing.backward_overlap``). Returns those
@@ -612,18 +629,18 @@ def _profile_step(step, overlap: bool = False) -> dict:
     for e in kernels[:12]:
         print(f"[profile] {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:<4d} {e.key[:90]}")
-    kinds: dict = {}
+    by_kind: dict = {}
     for e in kernels:
         name = e.key.lower()
-        kind = next((k for k, words in PROFILE_KINDS
+        kind = next((k for k, words in kinds
                      if any(w in name for w in words)), "other")
-        ms, n = kinds.get(kind, (0.0, 0))
-        kinds[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
-    for kind, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+        ms, n = by_kind.get(kind, (0.0, 0))
+        by_kind[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    for kind, (ms, n) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
         print(f"[profile] by kind: {ms:8.3f} ms x{n:<5d} "
               f"({100 * ms / busy_ms:.1f} % of busy) {kind}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "overlap": found,
-            "kinds": {k: ms for k, (ms, _) in kinds.items()}}
+            "kinds": {k: ms for k, (ms, _) in by_kind.items()}}
 
 
 def _bucket_report(opt) -> dict:
@@ -805,6 +822,155 @@ def phase_trainer_k2(dev):
     return {"step_ms": steady * 1e3, "tokens_per_s": BATCH * SEQ / steady,
             "peak_memory_gib": peak, "losses": losses, "pass_s": pass_s,
             "agreement": agreement, "step_moved": moved, **buckets}, launches
+
+
+# The MoE phase's first-step logits against the dense TransformerLM on the
+# same weights, expert 0 as its MLP (float32 (8, 2048, 32000) from bf16
+# compute): with one expert the gate is exactly 1 and the MoE FFN is the
+# dense MLP run on a 20480-row bucket, so the two differ only where cuBLAS
+# picks another GEMM for the taller operand; held to the limits the
+# long-context phase holds its bf16 modes' logits to.
+MOE_LOGITS_AGREEMENT = {"max_abs": 0.25, "mean_abs": 1e-2}
+# Kinds of device work in a profiled MoE step: the dispatch and combine
+# (the slot positions' cumsum, index_add into the buckets, index_select
+# back; the two embedding lookups are index_selects too), then
+# PROFILE_KINDS.
+MOE_PROFILE_KINDS = (
+    ("MoE dispatch and combine (cumsum, index_add, index_select)",
+     ("indexfunc", "indexselect", "cumsum", "scan")),) + PROFILE_KINDS
+
+
+def phase_moe(dev):
+    """The MoE TransformerLM at full width with one expert at NCCL world 1:
+    ``TransformerConfig(attn_mode="ulysses", moe_experts=1)``, bf16, 8 x
+    2048 tokens, ``DistributedOptimizer(Adam)`` with the reference trainer's
+    ``0.01 * moe_aux_loss()``, STEPS steps. With one expert the gate is 1,
+    the capacity (20480) drops nothing and the load-balance loss is 1."""
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import (TransformerConfig, TransformerLM,
+                                          lm_loss)
+    from horovod_tpu_torch.ops import flash
+    hvd.init()
+    require(hvd.size() == 1 and hvd.device() == dev, "init(): not world 1")
+    cfg = TransformerConfig(attn_mode="ulysses", moe_experts=1)
+    model = TransformerLM(cfg, device=dev, expert_group=dist.group.WORLD)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    tokens = torch.from_numpy(
+        synthetic_tokens(BATCH, SEQ, cfg.vocab_size, 0)).to(dev)
+    # the dense model on the same weights, expert 0 as its MLP
+    dense = TransformerLM(TransformerConfig(attn_mode="ulysses"), device=dev)
+    sd = {}
+    for k, v in model.state_dict().items():
+        if k.endswith("mlp.w_in"):
+            sd[k.replace("w_in", "wi.weight")] = v[0].t()
+        elif k.endswith("mlp.w_out"):
+            sd[k.replace("w_out", "wo.weight")] = v[0].t()
+        elif not k.endswith("mlp.router.weight"):
+            sd[k] = v
+    dense.load_state_dict(sd)
+    with torch.no_grad():  # the first step's forward, on the same weights
+        diff = (model(tokens) - dense(tokens)).abs()
+    first = {"max_abs": diff.max().item(), "mean_abs": diff.mean().item()}
+    del dense, sd, diff
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-3))
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def step():
+        opt.zero_grad()
+        logits = model(tokens)
+        aux = model.moe_aux_loss()
+        loss = lm_loss(logits, tokens) + 0.01 * aux
+        with torch.profiler.record_function("backward"):
+            loss.backward()
+        opt.step()
+        return loss.item(), [b.mlp.aux.item() for b in model.blocks]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, auxes, step_s = [], [], []
+    flash.reset_launch_counts()
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        loss, aux = step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        auxes.append(aux)
+    launches = dict(flash.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile = _profile_step(step, kinds=MOE_PROFILE_KINDS)
+    steady = sum(step_s[1:]) / (STEPS - 1)
+    print(f"[moe] TransformerLM {n_params / 1e6:.1f} M params, "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, 1 expert (capacity factor "
+          f"{cfg.moe_capacity_factor}), bf16, ulysses; batch {BATCH} x "
+          f"{SEQ} tokens; NCCL world 1")
+    print(f"[moe] losses {['%.4f' % x for x in losses]}; load-balance "
+          f"losses of the blocks, per step: {auxes}")
+    print(f"[moe] step time {steady * 1e3:.1f} ms (mean of steps 2-{STEPS};"
+          f" step 1 {step_s[0] * 1e3:.1f} ms), {BATCH * SEQ / steady:.0f} "
+          f"tokens/s, peak memory {peak:.2f} GiB on "
+          f"{torch.cuda.get_device_name(0)}")
+    print(f"[moe] first-step logits against the dense model on the same "
+          f"weights: max abs {first['max_abs']:.4g}, mean abs "
+          f"{first['mean_abs']:.4g} (limits {MOE_LOGITS_AGREEMENT})")
+    print(f"[moe] kernel launches {launches}")
+    require(all(math.isfinite(x) for x in losses), "moe: loss is not finite")
+    require(losses[-1] < losses[0], "moe: loss did not fall")
+    require(all(a == 1.0 for step_aux in auxes for a in step_aux),
+            f"moe: load-balance losses {auxes}, want exactly 1 a block")
+    want_launches = cfg.num_layers * STEPS
+    require(all(v == want_launches for v in launches.values()),
+            f"moe: launch counts {launches}, want {want_launches} each")
+    require(all(first[k] <= v for k, v in MOE_LOGITS_AGREEMENT.items()),
+            f"moe: first-step logits {first} against the dense model")
+    del model, opt
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    return {"step_ms": steady * 1e3, "tokens_per_s": BATCH * SEQ / steady,
+            "peak_memory_gib": peak, "losses": losses, "aux": auxes,
+            "step_s": step_s, "logits_vs_dense": first,
+            "profile": profile}, launches
+
+
+PIPELINE_ARGS = ["--model", "full", "--pp", "1", "--steps", str(STEPS)]
+
+
+def phase_pipeline(dev):
+    """The pipeline twin (``examples/pipeline_train.py --model full``: vocab
+    32000, d_model 512, hidden 2048, 4 residual-MLP blocks, 8 x 2048 tokens,
+    bf16) at pp 1 with 4 microbatches, NCCL world 1: its loss must fall."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import pipeline_train as pt
+    from horovod_tpu_torch.ops import flash
+    hvd.init(process_sets="dynamic")
+    require(hvd.size() == 1 and hvd.device() == dev, "init(): not world 1")
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    res, _ = pt.train(pt.parse_args(PIPELINE_ARGS))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(flash.launches)
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    steady = sum(res["step_s"][1:]) / (len(res["step_s"]) - 1)
+    tokens = res["tokens_per_replica"]
+    print(f"[pipeline] twin --model full, pp {res['pp']} x dp {res['dp']}, "
+          f"{res['n_micro']} microbatches, {tokens} tokens: losses "
+          f"{['%.4f' % x for x in res['losses']]}")
+    print(f"[pipeline] step time {steady * 1e3:.1f} ms (mean of steps 2-"
+          f"{len(res['step_s'])}; step 1 {res['step_s'][0] * 1e3:.1f} ms), "
+          f"{tokens / steady:.0f} tokens/s, peak memory {peak:.2f} GiB; "
+          f"port kernel launches {launches} (the stages are GEMMs)")
+    require(all(math.isfinite(x) for x in res["losses"]),
+            "pipeline: loss is not finite")
+    require(res["losses"][-1] < res["losses"][0],
+            "pipeline: loss did not fall")
+    return {"step_ms": steady * 1e3, "tokens_per_s": tokens / steady,
+            "peak_memory_gib": peak, "losses": res["losses"],
+            "step_s": res["step_s"]}
 
 
 # The long-context phase's agreement of the three modes' first-step logits
@@ -1286,18 +1452,30 @@ def main(argv) -> int:
     card = nvidia_smi()
     print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    phase_build()
-    edges = phase_tile_edges(dev)
-    rows = phase_kernels(dev)
-    phase_reference(dev)
-    launches, k2_launches, trainer = phase_trainer(dev)
-    long_ctx = phase_long_context()
-    patterns = phase_ring_patterns(dev)
-    convnets = phase_convnets(dev)
+    start = time.perf_counter()
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        print(f"[timing] {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    edges = timed("tile edges", phase_tile_edges, dev)
+    rows = timed("kernels", phase_kernels, dev)
+    timed("reference", phase_reference, dev)
+    launches, k2_launches, trainer = timed("trainer", phase_trainer, dev)
+    moe, moe_launches = timed("moe", phase_moe, dev)
+    pipeline = timed("pipeline", phase_pipeline, dev)
+    long_ctx = timed("long context", phase_long_context)
+    patterns = timed("ring patterns", phase_ring_patterns, dev)
+    convnets = timed("convnets", phase_convnets, dev)
+    print(f"[timing] all phases: {time.perf_counter() - start:.1f} s")
     for row in rows:
         name = row["name"]
         row["launches"] = launches[name]
         row["launches_k2_sparse"] = k2_launches[name]
+        row["launches_moe"] = moe_launches[name]
         row["launches_long_context"] = {
             mode: res["launches_per_step"][-1][name]
             for mode, res in long_ctx.items()}
@@ -1314,6 +1492,7 @@ def main(argv) -> int:
         "busy_share", "sync_ms", "sgd_ms")
         if key in v} for k, v in convnets.items()}}))
     print(json.dumps({"trainer": trainer}))
+    print(json.dumps({"moe": moe, "pipeline": pipeline}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -25,11 +25,13 @@ from .ops.collectives import (Handle, allgather, allgather_async,
                               grouped_broadcast_async, poll, reducescatter,
                               synchronize)
 from .ops.compression import Compression, Compressor
+from .ops.hierarchical import hierarchical_allgather, hierarchical_allreduce
 from .ops.reduce_ops import (Adasum, Average, Max, Min, Product, ReduceOp,
                              Sum)
 from .ops.sparse import (SparseRows, sparse_allreduce, sparse_allreduce_async,
                          sparse_allreduce_to_dense)
 from .optim import DistributedOptimizer, grad, value_and_grad
+from .parallel.mesh import mesh_layout
 from .models.sync_batch_norm import SyncBatchNorm
 from .process_sets import (ProcessSet, add_process_set, global_process_set,
                            remove_process_set)
@@ -49,8 +51,10 @@ __all__ = [
     "callbacks", "cross_rank", "cross_size", "cuda_built", "data", "device",
     "exceptions", "global_process_set", "grad", "grouped_allreduce",
     "grouped_allreduce_async", "grouped_broadcast", "grouped_broadcast_async",
-    "init", "is_homogeneous", "is_initialized", "local_rank", "local_size",
-    "metric_average", "nccl_built", "poll", "rank", "reducescatter",
+    "hierarchical_allgather", "hierarchical_allreduce", "init",
+    "is_homogeneous", "is_initialized", "local_rank", "local_size",
+    "mesh_layout", "metric_average", "nccl_built", "poll", "rank",
+    "reducescatter",
     "remove_process_set", "shutdown", "size", "sparse_allreduce",
     "sparse_allreduce_async", "sparse_allreduce_to_dense", "synchronize",
     "tpu_built", "value_and_grad", "xla_built",

@@ -10,8 +10,10 @@ modes on the flash kernels: ``"ring"`` and ``"ring_zigzag"``
 In those the model runs on this rank's block of the sequence, over the
 sequence group given as ``seq_group`` (a ``torch.distributed`` group; None
 is this rank alone), and positions are offset by the group rank times the
-block length. :func:`from_flax_params` carries the JAX package's weights
-across.
+block length. With ``moe_experts > 0`` each block's MLP is the
+expert-parallel MoE FFN (:class:`MoeMLP`) over the expert group given as
+``expert_group``, one expert a rank. :func:`from_flax_params` carries the
+JAX package's weights across.
 
 Every module is built on ``device`` when one is given, else on
 :func:`horovod_tpu_torch.runtime.default_device`: the device of ``init()``'s
@@ -29,7 +31,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import runtime
-from ..parallel.sequence import group_rank, ring_attention, ulysses_attention
+from ..parallel.moe import moe_alltoall
+from ..parallel.sequence import (group_rank, group_size, ring_attention,
+                                 ulysses_attention)
 
 RING_SCHEDULES = {"ring": "contiguous", "ring_zigzag": "zigzag"}
 SEQ_PARALLEL_MODES = tuple(RING_SCHEDULES) + ("ulysses",)
@@ -49,7 +53,12 @@ class TransformerConfig:
     # kernels over the model's sequence group: "ring", "ring_zigzag" (the
     # causal load-balanced zigzag schedule) or "ulysses"
     attn_mode: str = "full"
-    moe_experts: int = 0  # expert-parallel MoE FFN: ROADMAP item A9
+    # expert parallelism: moe_experts > 0 replaces the dense MLP with the
+    # expert-parallel MoE FFN over the model's expert group, whose size
+    # must be moe_experts (one expert a rank)
+    moe_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
 
     def __post_init__(self):
         # An unknown mode would silently fall through to full LOCAL
@@ -137,18 +146,68 @@ class MLP(nn.Module):
         return self.wo(F.gelu(self.wi(x), approximate="tanh"))
 
 
-class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None, seq_group=None):
+class MoeMLP(nn.Module):
+    """Expert-parallel MoE FFN (JAX ``MoeMLP``): one expert a rank of
+    ``expert_group``, routed by :func:`~horovod_tpu_torch.parallel.moe.
+    moe_alltoall`.
+
+    The router is float32. The expert weights are stored replicated,
+    ``w_in`` (n_experts, d, d_ff) and ``w_out`` (n_experts, d_ff, d) in
+    float32, and each rank selects its own expert. Only that slice gets a
+    gradient on a rank, so its gradient is pre-scaled by n_experts (the
+    forward-identical ``w * n - w.detach() * (n - 1)``): the AVERAGE
+    gradient sync then yields each expert's own gradient, with no special
+    case in the optimizer. Each forward leaves the block's Switch
+    load-balance loss in :attr:`aux` (the reference sows it under
+    ``("intermediates", "moe_aux")``); ``TransformerLM.moe_aux_loss()``
+    sums it over the blocks."""
+
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 expert_group=None):
         super().__init__()
-        if cfg.moe_experts > 0:
-            raise NotImplementedError(
-                "moe_experts > 0 is not ported yet (ROADMAP.md queue A, "
-                "item A9)")
+        self.cfg = cfg
+        self.expert_group = expert_group
+        device = runtime.default_device(device)
+        n_e, d = cfg.moe_experts, cfg.d_model
+        self.router = Dense(d, n_e, torch.float32, device)
+        self.w_in = nn.Parameter(torch.empty((n_e, d, cfg.d_ff),
+                                             device=device))
+        self.w_out = nn.Parameter(torch.empty((n_e, cfg.d_ff, d),
+                                              device=device))
+        self.aux = None
+
+    def forward(self, x):
+        cfg, n_e = self.cfg, self.cfg.moe_experts
+        b, s, d = x.shape
+        flat = x.reshape(b * s, d).to(cfg.dtype)
+        logits = self.router(flat)
+        e = group_rank(self.expert_group)
+
+        def grad_boost(w):
+            # forward-identical up to one rounding step, backward x n
+            return w * n_e - w.detach() * (n_e - 1)
+
+        def expert_fn(t):
+            h = F.gelu(t @ grad_boost(self.w_in[e]).to(t.dtype),
+                       approximate="tanh")
+            return h @ grad_boost(self.w_out[e]).to(t.dtype)
+
+        y, self.aux = moe_alltoall(
+            flat, logits, expert_fn, self.expert_group, k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor)
+        return y.reshape(b, s, d).to(cfg.dtype)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None, seq_group=None,
+                 expert_group=None):
+        super().__init__()
         device = runtime.default_device(device)
         self.ln1 = LayerNorm(cfg.d_model, cfg.dtype, device)
         self.attn = Attention(cfg, device, seq_group)
         self.ln2 = LayerNorm(cfg.d_model, cfg.dtype, device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = (MoeMLP(cfg, device, expert_group) if cfg.moe_experts > 0
+                    else MLP(cfg, device))
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
@@ -158,18 +217,28 @@ class Block(nn.Module):
 class TransformerLM(nn.Module):
     """Token ids (batch, seq) -> float32 logits (batch, seq, vocab). In a
     sequence-parallel ``attn_mode`` the tokens are this rank's block of the
-    sequence, block r of the ranks of ``seq_group``."""
+    sequence, block r of the ranks of ``seq_group``. With ``moe_experts >
+    0`` the blocks' MoE FFNs route over ``expert_group``, whose size must be
+    ``moe_experts``; add ``0.01 * moe_aux_loss()`` to the objective, as the
+    reference trainer does."""
 
-    def __init__(self, cfg: TransformerConfig, device=None, seq_group=None):
+    def __init__(self, cfg: TransformerConfig, device=None, seq_group=None,
+                 expert_group=None):
         super().__init__()
         self.cfg = cfg
         self.seq_group = seq_group
+        if cfg.moe_experts > 0 and group_size(expert_group) != \
+                cfg.moe_experts:
+            raise ValueError(
+                f"moe_experts={cfg.moe_experts} needs an expert group of "
+                f"that size, got {group_size(expert_group)} ranks")
         device = runtime.default_device(device)
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device)
         self.pos_embed = nn.Embedding(cfg.max_seq_len, cfg.d_model,
                                       device=device)
         self.blocks = nn.ModuleList(
-            Block(cfg, device, seq_group) for _ in range(cfg.num_layers))
+            Block(cfg, device, seq_group, expert_group)
+            for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg.d_model, cfg.dtype, device)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.dtype, device)
 
@@ -178,14 +247,19 @@ class TransformerLM(nn.Module):
         """flax's default initializers, drawn on the host from the CPU
         ``generator`` (so a seed gives the same weights on any device):
         embeddings normal with std 1/sqrt(d_model), dense kernels normal
-        with std 1/sqrt(fan_in), LayerNorm scale 1 and bias 0."""
+        with std 1/sqrt(fan_in), LayerNorm scale 1 and bias 0. flax's
+        ``lecun_normal`` counts the leading dim of a 3-D kernel as its
+        receptive field, so an expert weight's fan-in is ``n_experts * d``
+        (``w_in``) or ``n_experts * d_ff`` (``w_out``)."""
         for name, p in self.named_parameters():
             if name.endswith(("ln1.weight", "ln2.weight", "ln_f.weight")):
                 p.fill_(1.0)
             elif name.endswith("bias"):
                 p.zero_()
             else:
-                fan_in = p.shape[1]  # Linear: in_features; Embedding: d
+                # Linear: in_features; Embedding: d; experts: n_e * d or
+                # n_e * d_ff
+                fan_in = math.prod(p.shape[:2]) if p.dim() == 3 else p.shape[1]
                 p.copy_(torch.randn(p.shape, generator=generator)
                         / math.sqrt(fan_in))
         return self
@@ -202,6 +276,12 @@ class TransformerLM(nn.Module):
         for block in self.blocks:
             x = block(x)
         return self.lm_head(self.ln_f(x)).float()
+
+    def moe_aux_loss(self):
+        """The sum over the blocks of the load-balance losses of the last
+        forward (0 without MoE blocks)."""
+        return sum(b.mlp.aux for b in self.blocks
+                   if isinstance(b.mlp, MoeMLP))
 
 
 def lm_loss(logits, tokens):
@@ -241,7 +321,13 @@ def from_flax_params(params) -> dict:
         for name in ("q", "k", "v"):
             sd[pre + f"attn.{name}.weight"] = dense(blk["attn"][name]["kernel"])
         sd[pre + "attn.o.weight"] = dense(blk["attn"]["o"]["kernel"], 2)
-        sd[pre + "mlp.wi.weight"] = dense(blk["mlp"]["wi"]["kernel"])
-        sd[pre + "mlp.wo.weight"] = dense(blk["mlp"]["wo"]["kernel"])
+        if "moe_mlp" in blk:
+            moe, pre = blk["moe_mlp"], pre + "mlp."
+            sd[pre + "router.weight"] = dense(moe["router"]["kernel"])
+            sd[pre + "w_in"] = t(moe["w_in"])
+            sd[pre + "w_out"] = t(moe["w_out"])
+        else:
+            sd[pre + "mlp.wi.weight"] = dense(blk["mlp"]["wi"]["kernel"])
+            sd[pre + "mlp.wo.weight"] = dense(blk["mlp"]["wo"]["kernel"])
         i += 1
     return sd

@@ -195,11 +195,42 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor], *,
     ``compression`` sends floating tensors in its wire dtype, and results
     come back in each tensor's own dtype; a compressor with its own
     ``compress``/``decompress`` and no wire dtype wraps each tensor and
-    reduces what it makes, without wire-dtype fusion."""
+    reduces what it makes, without wire-dtype fusion. With
+    ``HVD_HIERARCHICAL_ALLREDUCE`` set, a SUM or AVERAGE over the global
+    set reduces two-level (``ops/hierarchical.py``)."""
     del name  # labels the op in the reference's timeline; no timeline here
-    tensors = list(tensors)
     pset = _resolve(process_set)
+    return _reduce_async(tensors, op=op, prescale_factor=prescale_factor,
+                         postscale_factor=postscale_factor,
+                         compression=compression, size=pset.size(),
+                         reduce=_reducer(pset, op))
+
+
+def _reducer(pset: ProcessSet, op: ReduceOp):
+    """The reducer of a wire buffer over ``pset`` for
+    :func:`_reduce_async`: two-level where ``HVD_HIERARCHICAL_ALLREDUCE``
+    routes ``op`` over the set, else one flat ``all_reduce``."""
+    from . import hierarchical
+    if (op in (ReduceOp.SUM, ReduceOp.AVERAGE)
+            and hierarchical.enabled(envs.HIERARCHICAL_ALLREDUCE, pset)):
+        return hierarchical.two_level_reducer(*hierarchical.level_groups())
     group = pset.group()
+
+    def reduce(buf, dist_op):
+        return dist.all_reduce(buf, op=dist_op, group=group,
+                               async_op=True), buf
+
+    return reduce
+
+
+def _reduce_async(tensors, *, op: ReduceOp, prescale_factor: float,
+                  postscale_factor: float, compression, size: int,
+                  reduce) -> Handle:
+    """The body of :func:`grouped_allreduce_async` over ``size`` ranks:
+    checks, the custom compressor's wrap, AVERAGE's lowering, the scales,
+    the fusion, then ``reduce(buffer, dist_op) -> (work or None,
+    result)`` for each wire buffer, and the unpack at ``synchronize()``."""
+    tensors = list(tensors)
     if not tensors:
         return Handle(result=[])
     for t in tensors:
@@ -209,13 +240,14 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor], *,
             "Adasum is not ported yet (ROADMAP.md queue A, item A9b)")
     if _is_custom_compressor(compression):
         pairs = [compression.compress(t) for t in tensors]
-        handle = grouped_allreduce_async(
+        handle = _reduce_async(
             [c for c, _ in pairs], op=op, prescale_factor=prescale_factor,
-            postscale_factor=postscale_factor, process_set=pset)
+            postscale_factor=postscale_factor, compression=None, size=size,
+            reduce=reduce)
         return handle.then(lambda outs: [
             compression.decompress(o, ctx)
             for o, (_, ctx) in zip(outs, pairs)])
-    lowered, post = handle_average(op, pset.size(), postscale_factor)
+    lowered, post = handle_average(op, size, postscale_factor)
     if op == ReduceOp.AVERAGE:  # the mean of bools is a float32 share
         tensors = [t.float() if t.dtype == torch.bool else t
                    for t in tensors]
@@ -224,17 +256,17 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor], *,
     wire = [_wire_dtype_of(t, compression) for t in tensors]
     outs = [_reduced_dtype(t.dtype, lowered, post) for t in tensors]
     bufs, metas = _fuse_by_dtype(tensors, wire, outs)
-    works = [dist.all_reduce(buf, op=_DIST_OPS[lowered], group=group,
-                             async_op=True) for buf in bufs]
+    reduced = [reduce(buf, _DIST_OPS[lowered]) for buf in bufs]
+    results = [r for _, r in reduced]
 
     def finish():
-        scaled = bufs
+        scaled = results
         if post != 1.0:  # out of place: an integer buffer turns float32
             scaled = [b.mul_(post) if b.is_floating_point() else b * post
-                      for b in bufs]
+                      for b in results]
         return _split_fused(scaled, metas, len(tensors))
 
-    return Handle(works, finish)
+    return Handle([w for w, _ in reduced if w is not None], finish)
 
 
 def grouped_allreduce(tensors: Sequence[torch.Tensor], **kw) -> list:
@@ -308,16 +340,17 @@ def barrier(*, process_set: ProcessSet | None = None) -> None:
 _MAX_DIMS = 8  # rank of the shapes allgather's metadata exchange carries
 
 
-def _all_shapes(x: torch.Tensor, pset: ProcessSet, group) -> list:
+def _all_shapes(x: torch.Tensor, size: int, group) -> list:
     """Every member's shape of ``x``, in rank order, through one allgather
-    of a fixed-length int64 row (its rank, then its dims)."""
+    of a fixed-length int64 row (its rank, then its dims) over the
+    ``size`` ranks of ``group``."""
     if x.dim() > _MAX_DIMS:
         raise ValueError(f"allgather takes tensors of at most {_MAX_DIMS} "
                          f"dimensions, got {x.dim()}")
     row = torch.zeros(_MAX_DIMS + 1, dtype=torch.int64, device=x.device)
     row[0] = x.dim()
     row[1:1 + x.dim()] = torch.tensor(x.shape, dtype=torch.int64)
-    rows = [torch.empty_like(row) for _ in range(pset.size())]
+    rows = [torch.empty_like(row) for _ in range(size)]
     dist.all_gather(rows, row, group=group)
     return [tuple(r[1:1 + int(r[0])].tolist()) for r in rows]
 
@@ -327,12 +360,27 @@ def allgather_async(tensor: torch.Tensor, *,
                     name: str | None = None) -> Handle:
     """Start an allgather (reference ``hvd.allgather_async``); see
     :func:`allgather`. The shapes are exchanged before this returns; the
-    handle's result is the concatenation."""
+    handle's result is the concatenation. With ``HVD_HIERARCHICAL_ALLGATHER``
+    set, a gather over the global set runs two-level
+    (``ops/hierarchical.py``)."""
     del name
+    from . import hierarchical
     pset = _resolve(process_set)
     group = pset.group()
+    levels = ()
+    if hierarchical.enabled(envs.HIERARCHICAL_ALLGATHER, pset):
+        levels = hierarchical.level_groups()
+    return _allgather_async(tensor, group, pset.size(), *levels)
+
+
+def _allgather_async(tensor: torch.Tensor, group, size: int,
+                     *levels) -> Handle:
+    """The body of :func:`allgather_async` over the ``size`` ranks of
+    ``group``, flat, or two-level over ``levels`` (``(local, cross,
+    local size, cross size)`` of ``hierarchical.level_groups``)."""
+    from . import hierarchical
     x = (tensor.reshape(1) if tensor.dim() == 0 else tensor).contiguous()
-    shapes = _all_shapes(x, pset, group)
+    shapes = _all_shapes(x, size, group)
     if len({s[1:] for s in shapes}) > 1:
         raise ValueError(
             "allgather tensors must agree on every dimension except the "
@@ -343,10 +391,14 @@ def allgather_async(tensor: torch.Tensor, *,
         return Handle(result=x.new_empty((0,) + x.shape[1:]))
     if x.shape[0] < width:  # pad to the widest rank's rows
         x = torch.cat([x, x.new_zeros((width - x.shape[0],) + x.shape[1:])])
-    parts = [torch.empty_like(x) for _ in rows]
-    work = dist.all_gather(parts, x, group=group, async_op=True)
+    if levels:
+        work, parts = hierarchical.two_level_gather(x, *levels)
+    else:
+        flat = [torch.empty_like(x) for _ in rows]
+        work = dist.all_gather(flat, x, group=group, async_op=True)
+        parts = lambda: flat  # noqa: E731
     return Handle([work], lambda: torch.cat(
-        [p[:r] for p, r in zip(parts, rows)]))
+        [p[:r] for p, r in zip(parts(), rows)]))
 
 
 def allgather(tensor: torch.Tensor, *,

@@ -16,6 +16,10 @@ the parameters' gradients over the ranks while the backward pass runs:
   buckets that are left, with a gradient that never landed sent as zeros,
   reduces the sparse-routed gradients, waits for every bucket and writes
   the results to ``.grad``; then the wrapped optimizer steps.
+* ``mesh_spec`` (a ``parallel.mesh.MeshLayout``) reduces every bucket
+  two-level over the layout (the node, then ``dcn``): the reference's
+  composed step, whose ``pmean`` over the ``seq`` or ``expert`` axis comes
+  before its data-axis sync (``parallel.mesh.step_reducer``).
 * ``backward_passes_per_step=k`` is ``optax.MultiSteps``: the first k-1
   calls of ``step()`` fold ``.grad`` into a float32 running mean
   (``acc + (g - acc) / n``) and change nothing else; the k-th reduces the
@@ -91,7 +95,11 @@ class DistributedOptimizer:
     ``process_set`` steps on its own gradients. ``stats`` holds the bucket
     sizes in bytes and, for each reducing step, how many buckets started
     during the backward pass (and each sparse-routed parameter's
-    ``max_rows``). Attributes other than ``step`` and
+    ``max_rows``). ``mesh_spec`` (a ``parallel.mesh.MeshLayout``, or the
+    name pair of its data axes for ``default_layout()``) averages over the
+    layout's ``seq``/``expert`` axes and its data axes, two-level, instead
+    of over a process set (reference ``_mesh_spec_sync`` after the composed
+    step's ``pmean``). Attributes other than ``step`` and
     ``synchronize`` are the wrapped optimizer's."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, *,
@@ -101,17 +109,26 @@ class DistributedOptimizer:
                  compression: type[Compressor] = Compression.none,
                  prescale_factor: float = 1.0, postscale_factor: float = 1.0,
                  backward_passes_per_step: int = 1,
-                 sparse_gradient_paths=None, sparse_max_rows=None):
+                 sparse_gradient_paths=None, sparse_max_rows=None,
+                 mesh_spec=None):
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
+        # (reducer, ranks) of every bucket; over a process set it is made
+        # at the first bucket, since the optimizer may precede init()
+        self._reducer = None
+        if mesh_spec is not None:
+            from ..parallel import mesh as composed
+            if process_set is not None or sparse_gradient_paths:
+                raise ValueError("mesh_spec reduces over the layout: it "
+                                 "takes no process_set and no "
+                                 "sparse_gradient_paths")
+            # its groups: every rank, in one order
+            self._reducer = composed.step_reducer(
+                composed.layout_of(mesh_spec), op)
         self.optimizer = optimizer
         self._pset = _resolve(process_set)
         self._op, self._compression = op, compression
         self._pre, self._post = prescale_factor, postscale_factor
-        self._sync_kw = dict(op=op, compression=compression,
-                             prescale_factor=prescale_factor,
-                             postscale_factor=postscale_factor,
-                             process_set=self._pset)
         self._k = backward_passes_per_step
         params, seen = [], set()
         for group in optimizer.param_groups:
@@ -205,8 +222,14 @@ class DistributedOptimizer:
 
     def _start(self, b: int) -> None:
         grads = [self._grad(self._dense[i]) for i in self._buckets[b]]
-        self._handles[b] = collectives.grouped_allreduce_async(
-            grads, **self._sync_kw)
+        if self._reducer is None:
+            self._reducer = (collectives._reducer(self._pset, self._op),
+                             self._pset.size())
+        reduce, size = self._reducer
+        self._handles[b] = collectives._reduce_async(
+            grads, op=self._op, prescale_factor=self._pre,
+            postscale_factor=self._post, compression=self._compression,
+            size=size, reduce=reduce)
         self._next = b + 1
 
     def _fold(self) -> None:

@@ -37,6 +37,8 @@ class _RuntimeState:
     owns_group: bool  # init() created the process group, shutdown() ends it
     process_set_table: Any = None  # process_sets.ProcessSetTable
     homogeneous: bool = True  # every node runs the same number of ranks
+    # rank tuple -> group, made by partition_groups; ended at shutdown()
+    groups: dict = dataclasses.field(default_factory=dict)
 
 
 _state: _RuntimeState | None = None
@@ -71,16 +73,19 @@ def init(device: str | torch.device | None = None,
     owns = False
     if not dist.is_initialized():
         backend = "nccl" if device.type == "cuda" else "gloo"
+        seconds = envs.get_int(envs.PROCESS_GROUP_TIMEOUT, 0)
+        timeout = ({"timeout": datetime.timedelta(seconds=seconds)}
+                   if seconds > 0 else {})
         if "MASTER_ADDR" in env and "MASTER_PORT" in env:
             dist.init_process_group(backend, init_method="env://",
-                                    rank=rank, world_size=size)
+                                    rank=rank, world_size=size, **timeout)
         elif size == 1:
             # the store binds port 0 itself: no window for another process
             # to take a port picked in advance
             store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True,
                                   timeout=datetime.timedelta(seconds=60))
             dist.init_process_group(backend, store=store, rank=0,
-                                    world_size=1)
+                                    world_size=1, **timeout)
         else:
             raise RuntimeError(
                 f"init(): WORLD_SIZE={size} needs MASTER_ADDR and MASTER_PORT")
@@ -101,6 +106,8 @@ def init(device: str | torch.device | None = None,
     if process_sets and process_sets != "dynamic":
         for ranks in process_sets:
             table.add(list(ranks), force=True)
+    from .ops import hierarchical  # deferred: it imports this module
+    hierarchical.make_default_groups()
     hvd_logging.info("initialized: rank %d of %d on %s (%s)", _state.rank,
                      size, device, dist.get_backend())
 
@@ -113,6 +120,9 @@ def shutdown() -> None:
     if dist.is_initialized():
         if _state.process_set_table is not None:
             _state.process_set_table.clear()
+        for group in _state.groups.values():
+            if group not in (None, dist.GroupMember.NON_GROUP_MEMBER):
+                dist.destroy_process_group(group)
         if _state.owns_group:
             dist.destroy_process_group()
     _state = None
@@ -127,6 +137,22 @@ def _get() -> _RuntimeState:
         raise NotInitializedError(
             "horovod_tpu_torch has not been initialized; call hvd.init()")
     return _state
+
+
+def partition_groups(parts) -> list:
+    """One ``torch.distributed`` group for each rank list of ``parts``,
+    in order, kept until :func:`shutdown`. ``dist.new_group`` is a call of
+    the whole world, so every rank calls this with the same parts in the
+    same order, members or not; a rank list met before reuses its group.
+    A group this rank is not in is ``GroupMember.NON_GROUP_MEMBER``."""
+    s = _get()
+    out = []
+    for ranks in parts:
+        key = tuple(sorted(int(r) for r in ranks))
+        if key not in s.groups:
+            s.groups[key] = dist.new_group(list(key))
+        out.append(s.groups[key])
+    return out
 
 
 def process_set_table():

@@ -15,6 +15,15 @@ LOG_LEVEL = "LOG_LEVEL"  # trace|debug|info|warning|error|fatal
 LOG_TIMESTAMP = "LOG_TIMESTAMP"  # prefix log lines with the time (default on)
 DYNAMIC_PROCESS_SETS = "DYNAMIC_PROCESS_SETS"  # add_process_set after init
 SPARSE_AS_DENSE = "SPARSE_AS_DENSE"  # sparse gradients take a dense allreduce
+HIERARCHICAL_ALLREDUCE = "HIERARCHICAL_ALLREDUCE"  # two-level global allreduce
+HIERARCHICAL_ALLGATHER = "HIERARCHICAL_ALLGATHER"  # two-level global allgather
+HIERARCHICAL_ICI_SIZE = "HIERARCHICAL_ICI_SIZE"  # ranks a node; default local_size
+MESH_AXES = "MESH_AXES"  # model-axis carve, e.g. "seq:2" or "expert:4,stage:2"
+# The port's own: seconds a collective may wait on its peers before the
+# process group declares it hung (torch's default when unset); NCCL's
+# watchdog then aborts the rank, dumping its flight recorder if
+# TORCH_NCCL_DUMP_ON_TIMEOUT is set.
+PROCESS_GROUP_TIMEOUT = "PROCESS_GROUP_TIMEOUT"
 
 _PREFIXES = ("HVD_", "HOROVOD_")
 
@@ -56,3 +65,10 @@ def fusion_threshold_bytes() -> int:
 
 def bucket_bytes() -> int:
     return get_int(BUCKET_BYTES, DEFAULT_BUCKET_BYTES)
+
+
+def mesh_axes() -> str:
+    """``HVD_MESH_AXES``: the model axes carved out of a node
+    (``parallel/mesh.py``), a comma list of ``name:size`` pairs such as
+    ``"seq:2"`` or ``"expert:4,stage:2"``; empty for none."""
+    return (get(MESH_AXES, "") or "").strip()

@@ -463,13 +463,16 @@ def _numpy_allreduce(xs, op, n, prescale_factor=1.0, postscale_factor=1.0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("attn", ["ring", "ring_zigzag", "ulysses"])
-def test_cuda_nccl_world4_long_context_twin(four_cards, attn):
+def test_cuda_nccl_world4_long_context_twin(four_cards, attn, tmp_path):
     """``python -m horovod_tpu_torch.examples.long_context_lm`` over four
     cards, 65536 tokens (16384 a rank) at full width for 3 steps: every
-    rank exits 0, so the loss fell (the twin raises where it does not)."""
+    rank exits 0, so the loss fell (the twin raises where it does not). A
+    collective that hangs makes NCCL dump each rank's flight recorder under
+    ``tmp_path``, which the failure prints (ROADMAP C3)."""
     from test_torch_long_context import twin
     logs = twin(4, ["--model", "full", "--attn", attn, "--seq-len",
-                    "65536", "--batch", "1", "--steps", "3"])
+                    "65536", "--batch", "1", "--steps", "3"],
+                trace_dir=tmp_path)
     assert "attention over 4 ranks, seq=65536 (16384 tokens/rank)" in logs[0]
     assert "OK" in logs[0], logs[0]
     print(logs[0])
@@ -583,6 +586,29 @@ def test_cuda_nccl_world4_trainer_overlap(four_cards, tmp_path):
 
 
 @pytest.mark.cuda
+def test_cuda_nccl_world4_two_level_trainer_overlap(four_cards, tmp_path):
+    """The trainer of :func:`test_cuda_nccl_world4_trainer_overlap` with
+    its buckets reduced two-level (``HVD_HIERARCHICAL_ALLREDUCE``, two
+    nodes of two): the losses are finite, a bucket starts during the
+    backward pass on every rank, and the step time and rank 0's profiled
+    step (the backward pass's last kernel against the NCCL kernels) are
+    printed: the steps run on a side stream, so the backward pass does
+    not wait for them."""
+    from test_torch_optimizer import run_world
+    ranks = run_world("_overlap_rank_on_card", tmp_path, size=4,
+                      module="test_torch_optimizer",
+                      env={"LOCAL_WORLD_SIZE": "2",
+                           "HVD_HIERARCHICAL_ALLREDUCE": "1"})
+    for r, res in enumerate(ranks):
+        assert np.isfinite(res["losses"]).all(), r
+        assert min(res["started_in_backward"]) >= 1, r
+        print(f"rank {r}: step {float(res['step_ms']):.2f} ms, "
+              f"{int(res['buckets'])} buckets, started in backward "
+              f"{res['started_in_backward'].tolist()}")
+    print(f"rank 0 overlap: {ranks[0]['overlap']}")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_nccl_world4_sync_batch_norm_matches_one_card(
         four_cards, cuda_device, tmp_path_factory, dtype):
@@ -631,3 +657,178 @@ def _sync_bn_world4(tmp_path_factory):
             "_sync_bn_rank_on_card", tmp_path_factory.mktemp("sync_bn4"),
             size=4)
     return _SYNC_BN_WORLD4["ranks"]
+
+
+# --------------------------------------------------------------------------
+# expert and pipeline parallelism and the two-level sync on four cards
+# --------------------------------------------------------------------------
+
+# The four-card MoE run against one card on the same weights, at every 64th
+# position of each sequence: the mean absolute difference of the logits,
+# and the share of positions whose largest difference stays within
+# MOE_MAX_ABS (bf16 compute: a token whose router logits nearly tie may go
+# to another expert when its activations differ by a rounding).
+MOE_MEAN_ABS, MOE_MAX_ABS, MOE_WITHIN_SHARE = 1e-2, 0.25, 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_moe_transformer_matches_one_card(
+        four_cards, cuda_device, tmp_path):
+    """The full-width MoE TransformerLM over four cards (``moe_experts=4``,
+    one expert a card, 2 x 2048 tokens a card, capacity factor 4 so that
+    nothing drops): its first step's logits against one card running the
+    same function (``test_torch_moe.DenseMoE``) on the four batches at once,
+    within ``MOE_MEAN_ABS`` / ``MOE_MAX_ABS`` / ``MOE_WITHIN_SHARE``; the
+    loss falls over 4 Adam steps, the flash kernels ran 4 times a step on
+    every card, and rank 0's profiled step prints the all-to-all's share of
+    its device time."""
+    from test_torch_moe import (CARD_POSITIONS, CARD_STEPS, card_tokens,
+                                one_card_moe_logits)
+    from test_torch_world2 import run_world
+    ranks = run_world("_moe_full_rank_on_card", tmp_path, size=4,
+                      module="test_torch_moe")
+    state = torch.load(tmp_path / "moe_weights.pt")
+    tokens = torch.from_numpy(np.concatenate(
+        [card_tokens(r) for r in range(4)])).to(cuda_device)
+    want = one_card_moe_logits(state, tokens, cuda_device)[
+        :, CARD_POSITIONS].cpu().numpy()
+    got = np.concatenate([res["logits0"] for res in ranks])
+    diff = np.abs(got - want)
+    within = float((diff.max(-1) <= MOE_MAX_ABS).mean())
+    wall, busy, nccl = ranks[0]["profile_ms"]
+    print(f"four-card MoE: logits against one card: mean abs "
+          f"{diff.mean():.3g}, max abs {diff.max():.3g}, positions within "
+          f"{MOE_MAX_ABS}: {within:.4f}; losses {ranks[0]['losses']}; step "
+          f"{1e3 * np.mean(ranks[0]['step_s'][1:]):.1f} ms; rank 0's "
+          f"profiled step: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
+          f"NCCL {nccl:.2f} ms ({100 * nccl / busy:.1f} % of busy)")
+    assert diff.mean() <= MOE_MEAN_ABS
+    assert within >= MOE_WITHIN_SHARE
+    for res in ranks:
+        losses = res["losses"]
+        assert np.isfinite(losses).all() and losses[-1] < losses[0]
+        assert res["launches"].tolist() == [4 * CARD_STEPS] * 3
+
+
+def _twin_world4(module: str, argv: list, tmp_path, env=None) -> list:
+    from test_torch_world2 import spawn_world
+    import sys
+    return spawn_world(lambda rank: [sys.executable, "-m", module, *argv], 4,
+                       env=env, trace_dir=tmp_path)
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_moe_twin(four_cards, tmp_path):
+    """``python -m horovod_tpu_torch.examples.moe --model full`` over four
+    cards (d_model 512, expert hidden 2048, 16384 tokens a card, bf16): every
+    rank exits 0, so the loss fell."""
+    logs = _twin_world4("horovod_tpu_torch.examples.moe",
+                        ["--model", "full", "--steps", "10"], tmp_path)
+    assert "MoE: 4 experts over 4 ranks" in logs[0] and "OK" in logs[0]
+    print(logs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pp", [4, 2])
+def test_cuda_nccl_world4_pipeline_twin(four_cards, pp, tmp_path):
+    """``python -m horovod_tpu_torch.examples.pipeline_train --model full``
+    over four cards at pp 4 and at dp 2 x pp 2 (4 microbatches, 8 x 2048
+    tokens a replica, bf16): every rank exits 0, so the loss fell."""
+    logs = _twin_world4("horovod_tpu_torch.examples.pipeline_train",
+                        ["--model", "full", "--pp", str(pp), "--steps", "8"],
+                        tmp_path)
+    assert f"pp={pp} dp={4 // pp}" in logs[0] and "OK" in logs[0]
+    print(logs[0])
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_two_level_is_exact(four_cards, tmp_path):
+    """Over NCCL in two nodes of two (``LOCAL_WORLD_SIZE=2``): the
+    two-level allreduce (routed and explicit) bitwise the flat one in the
+    exactness domain and within rtol 1e-6 on Gaussian inputs, the two-level
+    allgather in rank order, ``sync_gradients`` over dp x dp and dp x ep
+    bitwise the flat sync of the data ranks, and
+    ``DistributedOptimizer(mesh_spec=)`` over dp 2 x ep 2 stepping as the
+    flat sync over the world: the checks of
+    ``tests/test_torch_hierarchical.py``, on the card."""
+    import test_torch_hierarchical as th
+    from test_torch_world2 import run_world
+    ranks = run_world("_hier_rank_on_card", tmp_path, size=4,
+                      module="test_torch_hierarchical",
+                      env={"LOCAL_WORLD_SIZE": "2"})
+    for data in ("exact", "gauss"):
+        for case in th.CASES:
+            th.test_two_level_allreduce_matches_flat(ranks, data, case)
+    th.test_two_level_leaves_other_ops_and_sets_flat(ranks)
+    th.test_two_level_allgather_in_rank_order(ranks)
+    for layout in ("dcn2_ici2", "ep_across", "ep_within"):
+        th.test_sync_gradients_equals_pure_dp(ranks, layout)
+    th.test_optimizer_mesh_spec_steps_as_the_data_set(ranks)
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_flight_recorder_dumps_a_hang(four_cards, tmp_path):
+    """The diagnostics of ROADMAP C3: in a world of four, rank 0 enters an
+    allreduce alone; after ``HVD_PROCESS_GROUP_TIMEOUT`` (15 s here) NCCL's
+    watchdog dumps rank 0's flight recorder under ``tmp_path`` and aborts
+    it, and ``spawn_world``'s failure prints the dump: the allreduce that
+    hung, with its sequence number and state."""
+    import sys
+    from test_torch_world2 import spawn_world
+    code = "import test_torch_world2 as w; w._hang_rank_on_card('')"
+    with pytest.raises(AssertionError) as failure:
+        spawn_world(lambda rank: [sys.executable, "-c", code], 4,
+                    env={"HVD_PROCESS_GROUP_TIMEOUT": "15"},
+                    trace_dir=tmp_path)
+    msg = str(failure.value)
+    print(msg[-6000:])
+    assert "rank 0 failed" in msg
+    assert "NCCL flight records" in msg and "nccl_trace_rank_0" in msg
+    assert "all_reduce" in msg
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_moe_alltoall_and_pipeline_match_cpu(
+        four_cards, tmp_path):
+    """Over NCCL at a world of four, the paths the full-width runs do not
+    take: ``moe_alltoall`` with k 1 and 2, with nothing dropped and with
+    the capacity forced to 2, against the same ranks' gloo run on the host
+    (outputs and the load-balance loss rtol 1e-5 atol 1e-5, gradients rtol
+    1e-4 atol 1e-6; float32, TF32 off by default); ``pipeline_apply`` at pp
+    4 with 1 and 4 microbatches, ``remat`` on and off, against the stages
+    applied in sequence on the host (outputs rtol 1e-5 atol 1e-6, stage
+    gradients rtol 1e-4 atol 1e-6, the input cotangent rtol 1e-4 atol 1e-7
+    and bitwise the same on every stage)."""
+    import test_torch_pipeline as tp
+    from test_torch_moe import CAPACITIES, KS
+    from test_torch_world2 import run_world
+    card = run_world("_alltoall_rank_on_card", tmp_path / "moe_card", size=4,
+                     module="test_torch_moe")
+    host = run_world("_alltoall_rank", tmp_path / "moe_cpu", size=4,
+                     module="test_torch_moe")
+    for r, (got, want) in enumerate(zip(card, host)):
+        for k in KS:
+            for case in CAPACITIES:
+                for name in ("y", "aux", "gx", "glogits", "gw"):
+                    key = f"k{k}_{case}_{name}"
+                    tol = (dict(rtol=1e-5, atol=1e-5) if name in ("y", "aux")
+                           else dict(rtol=1e-4, atol=1e-6))
+                    np.testing.assert_allclose(got[key], want[key], **tol,
+                                               err_msg=f"rank {r} {key}")
+    ranks = run_world("_pipeline_rank_on_card", tmp_path / "pipe", size=4,
+                      module="test_torch_pipeline")
+    out, gw, gb, gx = tp._sequential(4)
+    for m in tp.N_MICRO:
+        for remat in tp.REMAT:
+            key = f"m{m}_remat{int(remat)}_"
+            for r, res in enumerate(ranks):
+                np.testing.assert_allclose(res[key + "out"], out, rtol=1e-5,
+                                           atol=1e-6)
+                np.testing.assert_allclose(res[key + "gw"], gw[r],
+                                           rtol=1e-4, atol=1e-6)
+                np.testing.assert_allclose(res[key + "gb"], gb[r],
+                                           rtol=1e-4, atol=1e-6)
+                np.testing.assert_allclose(res[key + "gx"], gx, rtol=1e-4,
+                                           atol=1e-7)
+                np.testing.assert_array_equal(res[key + "gx"],
+                                              ranks[0][key + "gx"])

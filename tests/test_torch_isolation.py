@@ -30,6 +30,20 @@ def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
+# The modules of the expert, pipeline and two-level slice, each held to the
+# rule by name as well as by the walk over the package.
+SLICE7 = ["parallel/moe.py", "parallel/pipeline.py", "parallel/mesh.py",
+          "ops/hierarchical.py", "examples/moe.py",
+          "examples/pipeline_train.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE7)
+def test_slice7_module_is_a_port_file(rel):
+    path = REPO / "horovod_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_file_imports_nothing_of_jax(path):
@@ -50,7 +64,13 @@ def test_import_leaves_jax_out_of_sys_modules():
             "horovod_tpu_torch.data, horovod_tpu_torch.callbacks, "
             "horovod_tpu_torch.examples.synthetic_benchmark, "
             "horovod_tpu_torch.examples.mnist, "
-            "horovod_tpu_torch.examples.long_context_lm; "
+            "horovod_tpu_torch.examples.long_context_lm, "
+            "horovod_tpu_torch.examples.moe, "
+            "horovod_tpu_torch.examples.pipeline_train, "
+            "horovod_tpu_torch.parallel.moe, "
+            "horovod_tpu_torch.parallel.pipeline, "
+            "horovod_tpu_torch.parallel.mesh, "
+            "horovod_tpu_torch.ops.hierarchical; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

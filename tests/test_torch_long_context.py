@@ -355,12 +355,13 @@ def test_cpu_ring_launches_no_kernel():
 # --------------------------------------------------------------------------
 
 
-def twin(size: int, argv: list) -> list:
+def twin(size: int, argv: list, trace_dir=None) -> list:
     """``python -m horovod_tpu_torch.examples.long_context_lm *argv`` in
-    each rank of a world of ``size``; the outputs."""
+    each rank of a world of ``size``; the outputs. ``trace_dir`` takes
+    NCCL's flight-recorder dumps if a collective times out."""
     return spawn_world(lambda rank: [
         sys.executable, "-m", "horovod_tpu_torch.examples.long_context_lm",
-        *argv], size)
+        *argv], size, trace_dir=trace_dir)
 
 
 @pytest.mark.parametrize("attn", ["ring", "ring_zigzag", "ulysses"])

@@ -157,12 +157,22 @@ def test_config_validation_matches_jax(mode):
                                      attn_mode="ring_zigzag"),
                                 dict(moe_experts=2)])
 def test_unported_modes_raise(kw):
-    """Valid JAX configurations the port has not reached (the MoE FFN,
-    under any attention mode) raise NotImplementedError naming their
-    ROADMAP item, instead of running something else."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The MoE FFN, under any attention mode, needs an expert group of
+    ``moe_experts`` ranks: without one (this rank alone) the model raises
+    ValueError naming the group's size, instead of running something else;
+    with one expert the same mode builds and gives finite logits at a
+    world of one. (Before the MoE FFN was ported, these configurations
+    raised NotImplementedError.)"""
+    with pytest.raises(ValueError, match="expert group of that size"):
         TransformerLM(TransformerConfig(dtype=torch.float32, **SMALL, **kw),
                       device="cpu")
+    one = dict(kw, moe_experts=1)
+    model = TransformerLM(TransformerConfig(dtype=torch.float32, **SMALL,
+                                            **one), device="cpu")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    logits = model(torch.from_numpy(_tokens()).long())
+    assert torch.isfinite(logits).all()
+    assert model.moe_aux_loss().item() == model.cfg.num_layers
 
 
 def test_model_defaults_to_the_card_unless_init_chose_a_device(

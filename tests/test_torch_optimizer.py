@@ -92,17 +92,18 @@ class Halver:
 
 
 def _logged_starts(hvd):
-    """Record the shapes of every ``grouped_allreduce_async`` the optimizer
-    starts, in issue order."""
+    """Record the shapes of every bucket sync the optimizer starts
+    (``collectives._reduce_async``, the body of
+    ``grouped_allreduce_async``), in issue order."""
     from horovod_tpu_torch.ops import collectives
-    log, real = [], collectives.grouped_allreduce_async
+    log, real = [], collectives._reduce_async
 
     def logged(tensors, **kw):
         log.append([tuple(t.shape) for t in tensors])
         return real(tensors, **kw)
 
-    collectives.grouped_allreduce_async = logged
-    return log, lambda: setattr(collectives, "grouped_allreduce_async", real)
+    collectives._reduce_async = logged
+    return log, lambda: setattr(collectives, "_reduce_async", real)
 
 
 def run_multisteps(hvd, k: int, dev) -> dict:

@@ -18,10 +18,12 @@ side needs JAX (``test_torch_sync_bn.py``, ``test_torch_training_utils.py``):
 """
 
 import os
+import shutil
 import signal
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -328,31 +330,104 @@ def _collectives_rank_on_card(out_path: str) -> None:
     _collectives_rank(out_path, device=None)
 
 
+def _hang_rank_on_card(out_path: str, alone_s: float = 60.0) -> None:
+    """One rank of an NCCL world whose rank 0 enters an allreduce that no
+    other rank joins: its watchdog declares it hung after
+    ``HVD_PROCESS_GROUP_TIMEOUT`` and aborts the rank, dumping the flight
+    recorder first. The other ranks wait ``alone_s`` and leave without
+    tearing the world down."""
+    import horovod_tpu_torch as hvd
+
+    del out_path
+    hvd.init()
+    x = torch.ones(4, device=hvd.device())
+    hvd.allreduce(x)  # every rank: the communicator's first collective
+    if hvd.rank() == 0:
+        hvd.allreduce(x)  # alone
+        torch.cuda.synchronize()
+    else:
+        time.sleep(alone_s)
+    os._exit(0)
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-def spawn_world(argv_of, size: int) -> list:
+# A collective that waits on its peers this long is declared hung: well
+# inside TIMEOUT_S, so that NCCL's watchdog dumps each rank's flight
+# recorder (the collectives it issued, in order, and how far each got)
+# before the ranks are aborted.
+PG_TIMEOUT_S = 120
+NCCL_TRACE_ENTRIES = 2000
+
+
+def _flight_records(trace_dir: Path) -> str:
+    """What NCCL's flight recorder dumped under ``trace_dir`` when a
+    collective timed out: for each rank, its last collectives in issue
+    order (process group, sequence number, operation, sizes, state)."""
+    import pickle
+    lines = []
+    for path in sorted(trace_dir.glob("nccl_trace_rank_*")):
+        try:
+            with open(path, "rb") as f:
+                dump = pickle.load(f)
+        except Exception as e:  # a half-written dump still says something
+            lines.append(f"--- {path.name}: unreadable ({e!r})")
+            continue
+        entries = dump.get("entries", []) if isinstance(dump, dict) else []
+        lines.append(f"--- {path.name}: {len(entries)} entries, last 40:")
+        for e in entries[-40:]:
+            pg = e.get("process_group", ("", ""))
+            lines.append(
+                f"  pg {e.get('pg_id')} {pg} seq "
+                f"{e.get('collective_seq_id')}/{e.get('p2p_seq_id')} "
+                f"{e.get('profiling_name')} in {e.get('input_sizes')} out "
+                f"{e.get('output_sizes')} {e.get('state')}")
+    return "\n".join(lines)
+
+
+def spawn_world(argv_of, size: int, env: dict | None = None,
+                trace_dir: Path | None = None) -> list:
     """Run the command ``argv_of(rank)`` in each rank of one world of
     ``size`` processes, with the environment a launcher sets (a free local
-    port, ``LOCAL_RANK`` = rank); returns each rank's output, after
-    checking that every rank exited 0. A rank still running after
-    ``TIMEOUT_S`` is aborted, and the failure shows where every thread of
-    it was (``PYTHONFAULTHANDLER``)."""
+    port, ``LOCAL_RANK`` = rank; ``env`` adds to it, e.g. a
+    ``LOCAL_WORLD_SIZE`` of two nodes); returns each rank's output, after
+    checking that every rank exited 0. A collective waiting longer than
+    ``PG_TIMEOUT_S`` fails its rank, and over NCCL dumps the rank's flight
+    recorder into ``trace_dir`` (default: a directory of its own), which a
+    failure prints. A rank still running after ``TIMEOUT_S`` is aborted,
+    and the failure shows where every thread of it was
+    (``PYTHONFAULTHANDLER``)."""
     port = _free_port()
+    own_dir = trace_dir is None
+    if own_dir:
+        trace_dir = Path(tempfile.mkdtemp(prefix="nccl_trace_"))
+    trace_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for rank in range(size):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(size),
-                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(size),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                   PYTHONFAULTHANDLER="1",
-                   PYTHONPATH=os.pathsep.join(
-                       [str(REPO), str(REPO / "tests"),
-                        os.environ.get("PYTHONPATH", "")]))
+        rank_env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(size),
+                        LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(size),
+                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                        PYTHONFAULTHANDLER="1",
+                        HVD_PROCESS_GROUP_TIMEOUT=str(PG_TIMEOUT_S),
+                        # the flight recorder, under the names of torch
+                        # 2.11 and of later versions (TORCH_FR_*)
+                        TORCH_NCCL_TRACE_BUFFER_SIZE=str(NCCL_TRACE_ENTRIES),
+                        TORCH_FR_BUFFER_SIZE=str(NCCL_TRACE_ENTRIES),
+                        TORCH_NCCL_DUMP_ON_TIMEOUT="1",
+                        TORCH_NCCL_DEBUG_INFO_TEMP_FILE=str(
+                            trace_dir / "nccl_trace_rank_"),
+                        TORCH_FR_DUMP_TEMP_FILE=str(
+                            trace_dir / "nccl_trace_rank_"),
+                        PYTHONPATH=os.pathsep.join(
+                            [str(REPO), str(REPO / "tests"),
+                             os.environ.get("PYTHONPATH", "")]))
+        rank_env.update(env or {})
         procs.append(subprocess.Popen(
-            argv_of(rank), env=env, cwd=REPO, stdout=subprocess.PIPE,
+            argv_of(rank), env=rank_env, cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     logs, hung = [], False
     try:
@@ -370,23 +445,30 @@ def spawn_world(argv_of, size: int) -> list:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    failed = hung or any(p.returncode != 0 for p in procs)
+    records = _flight_records(trace_dir) if failed else ""
+    if own_dir:
+        shutil.rmtree(trace_dir, ignore_errors=True)
     for rank, (p, log) in enumerate(zip(procs, logs)):
         assert not hung and p.returncode == 0, (
             f"rank {rank} {'hung' if hung else 'failed'}:\n{log}\n"
             + "\n".join(f"--- rank {r}:\n{other[-4000:]}"
-                        for r, other in enumerate(logs) if r != rank))
+                        for r, other in enumerate(logs) if r != rank)
+            + (f"\nNCCL flight records:\n{records}" if records else ""))
     return logs
 
 
 def run_world(rank_main: str, tmp: Path, size: int = 2,
-              module: str = "test_torch_world2") -> list:
+              module: str = "test_torch_world2",
+              env: dict | None = None) -> list:
     """Run ``rank_main(out_path)``, a function of the JAX-free test module
     ``module``, in each rank of one world of ``size`` processes (gloo, or
-    NCCL where ``rank_main`` starts one); returns each rank's saved
-    arrays."""
+    NCCL where ``rank_main`` starts one), with ``env`` added to each rank's
+    environment; returns each rank's saved arrays."""
     code = f"import sys, {module} as w; w.{rank_main}(sys.argv[1])"
     spawn_world(lambda rank: [sys.executable, "-c", code,
-                              str(tmp / f"rank{rank}.npz")], size)
+                              str(tmp / f"rank{rank}.npz")], size, env=env,
+                trace_dir=tmp / "nccl_trace")
     return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(size)]
 
 
