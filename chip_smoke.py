@@ -55,6 +55,16 @@ Phases, each of which exits non-zero on failure:
    the dense TransformerLM on the same weights (expert 0 as its MLP) within
    ``MOE_LOGITS_AGREEMENT``; one profiled step by kind of work (dispatch
    and combine, GEMMs, flash, copies);
+7b. adasum: the trainer again with ``DistributedOptimizer(op=Adasum)``
+   at NCCL world 1, 5 steps, beside a shadow ``op=Average`` optimizer fed
+   the same local gradients: each step's reduced gradients must equal the
+   local ones and both runs' parameters stay bitwise equal (both ops are
+   the identity at world 1), the loss must fall and every step start a
+   bucket in the backward pass; the fused per-tensor combine of one VHDD
+   level (``ops.adasum.combine``) on two batches' gradients, float32 and
+   rounded to bf16, within ``ADASUM_AGREEMENT`` of its float64 version, and
+   timed; the native negotiation engine built with ``g++`` and one
+   in-process cycle of two engines, and one KV round's time;
 8. pipeline: the pipeline twin (``examples/pipeline_train.py --model
    full``: vocab 32000, d_model 512, hidden 2048, 4 residual-MLP blocks, 8
    x 2048 tokens, bf16) at pp 1 with 4 microbatches for 5 steps: the loss
@@ -100,9 +110,10 @@ The last lines are a ``{"trainer": {"hooks": ..., "k2_sparse": ...}}`` JSON
 object (each run's step time, tokens/s, peak memory, losses and buckets,
 with the per-step count of buckets started during the backward pass), a
 ``{"moe": ..., "pipeline": ...}`` one, one ``{"kernels": [...]}`` JSON
-object (each kernel's launches on the trainer's, the k=2 run's and the MoE
-run's main path), the card's ``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": {...}}``.
+object (each kernel's launches on the trainer's, the k=2 run's, the
+Adasum run's and the MoE run's main path), preceded by ``{"adasum": ...}``,
+the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -840,6 +851,198 @@ MOE_PROFILE_KINDS = (
      ("indexfunc", "indexselect", "cumsum", "scan")),) + PROFILE_KINDS
 
 
+ADASUM_AGREEMENT = 1e-5  # max abs error over the largest |value|
+
+
+def _adasum_plain(a, b, sizes) -> torch.Tensor:
+    """The combine of one VHDD level in float64, tensor by tensor (the
+    plain version of ``ops.adasum.combine``)."""
+    out = []
+    for x, y in zip(a.double().split(sizes), b.double().split(sizes)):
+        dot, na, nb = (x * y).sum(), (x * x).sum(), (y * y).sum()
+        ac = 1 - dot / (2 * na) if na > 0 else 1.0
+        bc = 1 - dot / (2 * nb) if nb > 0 else 1.0
+        out.append(ac * x + bc * y)
+    return torch.cat(out)
+
+
+def _kv_round_ms(rounds: int = 50) -> float:
+    """Mean time of one negotiation round of two members over the port's
+    KV store on this host (both members in this process, one thread
+    each)."""
+    import threading
+    from horovod_tpu_torch.runner.http_kv import (KVClient, KVServer,
+                                                  make_secret)
+    from horovod_tpu_torch.engine_service import KVTransport
+    server = KVServer(secret=make_secret(), host="127.0.0.1")
+    port = server.start()
+    try:
+        members = [KVTransport(KVClient("127.0.0.1", port,
+                                        secret=server.secret), 2, r)
+                   for r in range(2)]
+        errors = []
+
+        def run(t):
+            try:
+                for c in range(rounds):
+                    t.exchange(c, b"x" * 64, b"\x01", 60.0)
+            except Exception as e:  # re-raised below, in this thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(t,)) for t in members]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return (time.perf_counter() - t0) * 1e3 / rounds
+    finally:
+        server.stop()
+
+
+def phase_adasum(dev) -> tuple[dict, dict]:
+    """(a) The trainer at full width with ``DistributedOptimizer(op=
+    Adasum)`` at NCCL world 1, beside a shadow ``op=Average`` optimizer fed
+    the same local gradients: at world 1 both reductions are the identity,
+    so each step's reduced gradients equal the local ones and both runs'
+    parameters stay bitwise equal; the loss falls. (b) The fused
+    per-tensor combine of one VHDD level on the trainer's gradients of two
+    different batches, float32 and rounded to bf16, against its float64
+    version, timed. (c) The native negotiation engine built with ``g++``
+    here, and one in-process ``drive_cycle`` of two engines; one KV
+    round's time on this host."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import dynamic, _native
+    from horovod_tpu_torch.models import (TransformerConfig, TransformerLM,
+                                          lm_loss)
+    from horovod_tpu_torch.ops import adasum, flash
+    hvd.init()
+    cfg = TransformerConfig(attn_mode="ulysses")  # full-width defaults
+    model = TransformerLM(cfg, device=dev)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    params = list(model.parameters())
+    shadow = [torch.nn.Parameter(p.detach().clone()) for p in params]
+    local, capture = {}, [True]
+
+    def keep_local(p):
+        if capture[0]:
+            local[id(p)] = p.grad.clone()
+
+    for p in params:
+        p.register_post_accumulate_grad_hook(keep_local)
+    opt = hvd.DistributedOptimizer(torch.optim.Adam(params, lr=1e-3),
+                                   op=hvd.Adasum)
+    opt_avg = hvd.DistributedOptimizer(torch.optim.Adam(shadow, lr=1e-3),
+                                       op=hvd.Average)
+    tokens = torch.from_numpy(
+        synthetic_tokens(BATCH, SEQ, cfg.vocab_size, 0)).to(dev)
+    losses, step_s, identity, same = [], [], [], []
+    flash.reset_launch_counts()
+    for _ in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = lm_loss(model(tokens), tokens)
+        loss.backward()
+        opt.synchronize()
+        opt.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        for p, q in zip(params, shadow):
+            q.grad = local[id(p)]
+        opt_avg.step()
+        identity.append(all(torch.equal(p.grad, local[id(p)])
+                            and torch.equal(q.grad, local[id(p)])
+                            for p, q in zip(params, shadow)))
+        same.append(all(torch.equal(p, q) for p, q in zip(params, shadow)))
+    launches = dict(flash.launches)
+    buckets = _bucket_report(opt)
+    steady = sum(step_s[1:]) / (STEPS - 1)
+    print(f"[adasum] trainer, DistributedOptimizer(Adam, op=Adasum), NCCL "
+          f"world 1: losses {['%.4f' % x for x in losses]}, step "
+          f"{steady * 1e3:.1f} ms (mean of steps 2-{STEPS}); reduced "
+          f"gradients equal the local ones: {identity}; parameters bitwise "
+          f"those of op=Average: {same}; buckets started in the backward "
+          f"pass per step: {buckets['started_in_backward']}")
+    require(all(math.isfinite(x) for x in losses), "adasum loss not finite")
+    require(losses[-1] < losses[0], "adasum loss did not fall")
+    require(all(identity), "Adasum or Average at world 1 is not the "
+            "identity")
+    require(all(same), "op=Adasum and op=Average parameters differ")
+    require(min(buckets["started_in_backward"]) >= 1,
+            "a step started no Adasum bucket before backward() returned")
+    want = cfg.num_layers * STEPS
+    require(all(v == want for v in launches.values()),
+            f"adasum run's launch counts {launches}, want {want} each")
+    # (b) one VHDD level's combine on two batches' gradients, the
+    # optimizers' hooks gone
+    del opt, opt_avg, shadow
+    gc.collect()
+    capture[0] = False
+    local.clear()
+    grads = []
+    for seed in (0, 1):
+        t = torch.from_numpy(synthetic_tokens(BATCH, SEQ, cfg.vocab_size,
+                                              seed)).to(dev)
+        model.zero_grad()
+        lm_loss(model(t), t).backward()
+        grads.append(torch.cat([p.grad.reshape(-1).float()
+                                for p in params]))
+    sizes = [p.numel() for p in params]
+    model.zero_grad(set_to_none=True)
+    combine = {}
+    for name, cast in (("float32", lambda x: x),
+                       ("bf16", lambda x: x.bfloat16().float())):
+        a, b = cast(grads[0]), cast(grads[1])
+        got = adasum.combine(a, b, sizes)
+        want = _adasum_plain(a, b, sizes)
+        err = (got.double() - want).abs().max().item()
+        scale = want.abs().max().item()
+        ms = time_ms(lambda: adasum.combine(a, b, sizes), reps=10)
+        plain_ms = time_ms(lambda: _adasum_plain(a, b, sizes), reps=3)
+        # a and b read once, the result written once, float32
+        bound_ms = 3 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        combine[name] = {"max_abs_err": err, "max_abs_value": scale,
+                         "ms": ms, "plain_float64_ms": plain_ms,
+                         "bound_ms": bound_ms}
+        print(f"[adasum] fused per-tensor combine of one level, {name} "
+              f"gradients of {len(sizes)} tensors ({a.numel() / 1e6:.1f} M "
+              f"elements): max abs err {err:.3g} vs float64 (max |value| "
+              f"{scale:.3g}, tolerance {ADASUM_AGREEMENT} of it); "
+              f"{ms:.3f} ms (float64 plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.3f} ms)")
+        require(torch.isfinite(got).all().item(), "combine not finite")
+        require(err <= ADASUM_AGREEMENT * scale,
+                f"{name} combine disagrees with float64")
+    del model, grads
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    # (c) the native engine, built here, and two engines' cycle
+    t0 = time.perf_counter()
+    path = _native.build()
+    build_s = time.perf_counter() - t0
+    engines = [dynamic.NativeEngine(world_size=2, rank=r) for r in range(2)]
+    for e in engines:
+        e.enqueue("t", dynamic.REQ_ALLREDUCE, shape=(4,))
+    plans = dynamic.drive_cycle(engines)
+    for e in engines:
+        e.close()
+    ok = all(len(pl) == 1 and pl[0].tensor_names == ["t"]
+             and pl[0].type == dynamic.REQ_ALLREDUCE for pl in plans)
+    kv_ms = _kv_round_ms()
+    print(f"[adasum] native engine {_native.version()} built in "
+          f"{build_s:.1f} s ({path.name}); two engines' cycle: {plans[0]}; "
+          f"one KV round of two members on this host: {kv_ms:.3f} ms")
+    require(ok, "the native engines' cycle gave no allreduce plan")
+    return {"losses": losses, "step_ms": steady * 1e3, "step_s": step_s,
+            "identity": identity, "bitwise_average": same, **buckets,
+            "combine": combine, "engine_build_s": build_s,
+            "kv_round_ms": kv_ms}, launches
+
+
 def phase_moe(dev):
     """The MoE TransformerLM at full width with one expert at NCCL world 1:
     ``TransformerConfig(attn_mode="ulysses", moe_experts=1)``, bf16, 8 x
@@ -1465,6 +1668,7 @@ def main(argv) -> int:
     rows = timed("kernels", phase_kernels, dev)
     timed("reference", phase_reference, dev)
     launches, k2_launches, trainer = timed("trainer", phase_trainer, dev)
+    ada, ada_launches = timed("adasum", phase_adasum, dev)
     moe, moe_launches = timed("moe", phase_moe, dev)
     pipeline = timed("pipeline", phase_pipeline, dev)
     long_ctx = timed("long context", phase_long_context)
@@ -1476,6 +1680,7 @@ def main(argv) -> int:
         row["launches"] = launches[name]
         row["launches_k2_sparse"] = k2_launches[name]
         row["launches_moe"] = moe_launches[name]
+        row["launches_adasum"] = ada_launches[name]
         row["launches_long_context"] = {
             mode: res["launches_per_step"][-1][name]
             for mode, res in long_ctx.items()}
@@ -1493,6 +1698,7 @@ def main(argv) -> int:
         if key in v} for k, v in convnets.items()}}))
     print(json.dumps({"trainer": trainer}))
     print(json.dumps({"moe": moe, "pipeline": pipeline}))
+    print(json.dumps({"adasum": ada}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

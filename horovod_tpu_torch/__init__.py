@@ -16,14 +16,15 @@ Module layout mirrors the JAX package: ``horovod_tpu/X.py`` maps to
 from . import callbacks, data, exceptions
 from .callbacks import average_metrics, metric_average
 from .exceptions import HorovodInternalError, HostsUpdatedInterrupt
+from .ops.adasum import adasum_allreduce
 from .functions import broadcast_optimizer_state, broadcast_parameters
 from .ops.collectives import (Handle, allgather, allgather_async,
                               allgather_object, allreduce, allreduce_async,
                               alltoall, barrier, broadcast, broadcast_async,
                               broadcast_object, grouped_allreduce,
                               grouped_allreduce_async, grouped_broadcast,
-                              grouped_broadcast_async, poll, reducescatter,
-                              synchronize)
+                              grouped_broadcast_async, join, poll,
+                              reducescatter, synchronize)
 from .ops.compression import Compression, Compressor
 from .ops.hierarchical import hierarchical_allgather, hierarchical_allreduce
 from .ops.reduce_ops import (Adasum, Average, Max, Min, Product, ReduceOp,
@@ -44,7 +45,8 @@ __all__ = [
     "Adasum", "Average", "Compression", "Compressor", "DistributedOptimizer",
     "Handle", "HorovodInternalError", "HostsUpdatedInterrupt", "Max", "Min",
     "NotInitializedError", "ProcessSet", "Product", "ReduceOp", "SparseRows",
-    "Sum", "SyncBatchNorm", "add_process_set", "allgather", "allgather_async",
+    "Sum", "SyncBatchNorm", "adasum_allreduce", "add_process_set",
+    "allgather", "allgather_async",
     "allgather_object", "allreduce", "allreduce_async", "alltoall",
     "average_metrics", "barrier", "broadcast", "broadcast_async",
     "broadcast_object", "broadcast_optimizer_state", "broadcast_parameters",
@@ -52,7 +54,7 @@ __all__ = [
     "exceptions", "global_process_set", "grad", "grouped_allreduce",
     "grouped_allreduce_async", "grouped_broadcast", "grouped_broadcast_async",
     "hierarchical_allgather", "hierarchical_allreduce", "init",
-    "is_homogeneous", "is_initialized", "local_rank", "local_size",
+    "is_homogeneous", "is_initialized", "join", "local_rank", "local_size",
     "mesh_layout", "metric_average", "nccl_built", "poll", "rank",
     "reducescatter",
     "remove_process_set", "shutdown", "size", "sparse_allreduce",

@@ -1,0 +1,586 @@
+"""Negotiation service of multi-process eager collectives (port of
+``horovod_tpu/engine_service.py``).
+
+The reference's background loop (``BackgroundThreadLoop`` -> ``RunLoopOnce``
+every ``CycleTimeMs``, ``operations.cc:385-806``): each process ticks the
+symmetric negotiation protocol of :mod:`horovod_tpu_torch.dynamic` over the
+launcher's KV store (``runner/http_kv.py``). A process is a rank. Eager
+collectives negotiate before they issue, and the service guarantees that
+
+* every rank issues the negotiated collectives in one agreed order: the
+  order in which their plans arrive, the same on every rank;
+* a disagreement of shape, dtype, op or root is a
+  :class:`~horovod_tpu_torch.dynamic.HorovodCollectiveError` on every rank,
+  raised before any collective is issued, instead of a hang;
+* a tensor submitted by some ranks but not all is reported by the stall
+  inspector after ``HVD_STALL_CHECK_TIME_SECONDS`` (60 s by default);
+* ``join()`` lets a rank with no data left contribute zeros to the
+  allreduces, zero rows to the allgathers and its arrival to the barriers
+  that the others still run.
+
+The cycle thread exchanges and delivers plans; it issues no collective,
+except the zero contributions of a joined rank, while that rank's own
+thread is blocked inside ``join()``. Every other collective is issued by
+the thread that asks for it, in the agreed order (:meth:`DynamicService.
+run_until`): a collective whose plan has arrived is issued once every
+collective whose plan arrived before it has been.
+
+The service starts where a launcher's KV store is set (``HVD_KV_ADDR``,
+``HVD_KV_PORT``, ``HVD_SECRET_KEY``) in a world of more than one rank, one
+service per process set over its members; ``HVD_DYNAMIC_ENGINE=0`` turns it
+off. The engine must build: there is no quiet fallback to running
+unnegotiated.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import threading
+import time
+
+import torch
+
+from . import runtime
+from .dynamic import (REQ_ALLTOALL, REQ_BROADCAST, REQ_JOIN,
+                      REQ_REDUCESCATTER, RESP_ERROR, DuplicateNameError,
+                      HorovodCollectiveError, NativeEngine, Response,
+                      and_bitvectors)
+from .exceptions import PeerFailureError
+from .utils import envs
+from .utils import logging as hvd_logging
+
+# The idle cycle over the HTTP KV transport: a KV round costs milliseconds,
+# so ticking faster burns CPU. Work in flight wakes the loop at once and
+# lowers the pace to DEFAULT_PENDING_CYCLE_TIME_MS (HVD_ADAPTIVE_CYCLE=0
+# keeps the fixed cadence).
+DEFAULT_KV_CYCLE_TIME_MS = 20.0
+DEFAULT_PENDING_CYCLE_TIME_MS = 2.0
+_STALL_CHECK_INTERVAL_S = 5.0
+EXCHANGE_TIMEOUT_S = 600.0  # a peer silent this long has failed
+# no collective sound with zero contribution (docs/join.md)
+_NOT_JOINABLE = (REQ_BROADCAST, REQ_ALLTOALL, REQ_REDUCESCATTER)
+
+
+class KVTransport:
+    """Allgather of each member's (requests, cache bits) frame over the KV
+    store: one PUT and one long-poll gather per member and cycle (the
+    analog of the reference controller's MPI gather and broadcast)."""
+
+    def __init__(self, kv_client, world_size: int, rank: int,
+                 prefix: str = "engine"):
+        self.kv = kv_client
+        self.world_size = world_size
+        self.rank = rank
+        self.prefix = prefix
+        self.last_round_s = 0.0  # the last exchange, publish to gathered
+
+    def exchange(self, cycle: int, req_bytes: bytes, bits: bytes,
+                 timeout: float) -> tuple[list[bytes], list[bytes]]:
+        """One round: publish (requests, bits), collect everyone's. A
+        member silent for ``timeout`` raises :class:`PeerFailureError`."""
+        t0 = time.monotonic()
+        frame = struct.pack("<I", len(req_bytes)) + req_bytes + bits
+        scope = f"{self.prefix}/x/{cycle}"
+        self.kv.put(f"{scope}/{self.rank}", frame)
+        try:
+            got = self.kv.gather(scope, self.world_size, timeout=timeout)
+        except TimeoutError as e:
+            seen = {int(k.rsplit("/", 1)[1]) for k in self.kv.keys(scope)}
+            missing = [r for r in range(self.world_size) if r not in seen]
+            raise PeerFailureError(missing[0] if missing else -1,
+                                   f"no negotiation frame: {e}") from e
+        self.last_round_s = time.monotonic() - t0
+        datas: list = [b""] * self.world_size
+        bitvs: list = [b""] * self.world_size
+        for k, v in got.items():
+            r = int(k.rsplit("/", 1)[1])
+            (ln,) = struct.unpack_from("<I", v, 0)
+            datas[r] = v[4:4 + ln]
+            bitvs[r] = v[4 + ln:]
+        # every member read cycle c before any can write cycle c + 2, so
+        # our cycle c - 1 key is no longer read
+        if cycle > 0:
+            self.kv.delete(f"{self.prefix}/x/{cycle - 1}/{self.rank}")
+        return datas, bitvs
+
+
+class _Pending:
+    __slots__ = ("event", "response", "order")
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.response: Response | None = None
+        self.order = -1  # the place of its plan in the agreed order
+
+
+class NegotiationTicket:
+    """An in-flight :meth:`DynamicService.negotiate_many_submit`, consumed
+    by exactly one of ``negotiate_many_wait`` and
+    ``negotiate_many_cancel``."""
+
+    __slots__ = ("requests", "pends", "submitted_at")
+
+    def __init__(self, requests, pends):
+        self.requests = requests
+        self.pends = pends
+        self.submitted_at = time.monotonic()
+
+    def ready(self) -> bool:
+        return all(p.event.is_set() for p in self.pends)
+
+    def order(self) -> int:
+        return max(p.order for p in self.pends)
+
+
+class Queued:
+    """A negotiated collective: its ticket, ``issue(responses)`` that
+    issues it, and once issued its ``result`` or ``error``."""
+
+    __slots__ = ("ticket", "issue", "issued", "result", "error")
+
+    def __init__(self, ticket, issue):
+        self.ticket, self.issue = ticket, issue
+        self.issued, self.result, self.error = False, None, None
+
+
+class DynamicService:
+    """One engine and transport, cycled on a background thread."""
+
+    def __init__(self, engine: NativeEngine, transport, device=None):
+        self.engine = engine
+        self.transport = transport
+        world = getattr(transport, "world_size", 1)
+        # idle cadence scales with the world: every member exchanges every
+        # tick, so a large world would flood the one KV server
+        self._idle_cycle_default_ms = (
+            DEFAULT_KV_CYCLE_TIME_MS * max(1.0, world / 16.0))
+        self.rounds = 0  # busy rounds, and their summed seconds
+        self.round_seconds = 0.0
+        self._device = device
+        self._cycle = 0
+        self._delivered = 0  # plans delivered: the agreed order
+        self._mu = threading.Lock()
+        self._pending: dict[str, _Pending] = {}
+        self._queue: list[Queued] = []  # submitted, not yet issued
+        self._issue_lock = threading.RLock()
+        self._joined = False
+        self._failure: str | None = None
+        self._failure_exc: Exception | None = None
+        self._shutdown = threading.Event()
+        self._tick = threading.Event()  # fresh work: skip the cycle sleep
+        self._last_stall_check = time.monotonic()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="hvd-engine-cycle")
+        self._thread.start()
+
+    # -- public ------------------------------------------------------------
+
+    def negotiate(self, name: str, request_type: int, *,
+                  timeout: float | None = None, **meta) -> Response:
+        """Enqueue one request and block until the plan includes it."""
+        return self.negotiate_many([dict(name=name,
+                                         request_type=request_type, **meta)],
+                                   timeout=timeout)[0]
+
+    def join(self, name: str, timeout: float | None = None) -> int:
+        """Reference ``hvd.join`` (``operations.cc:1729-1761``): this rank
+        stops contributing data; until every rank has joined, the cycle
+        thread runs the collectives the others schedule with zero inputs.
+        Returns the last rank to join. Blocks without a deadline by
+        default, as the reference does."""
+        self._joined = True
+        try:
+            resp = self.negotiate(name, REQ_JOIN, timeout=float("inf")
+                                  if timeout is None else timeout)
+        finally:
+            self._joined = False
+        return resp.root_rank
+
+    def negotiate_many(self, requests: list[dict],
+                       timeout: float | None = None) -> list[Response]:
+        """Enqueue a batch (one grouped op) and wait for all its plans."""
+        return self.negotiate_many_wait(self.negotiate_many_submit(requests),
+                                        timeout=timeout)
+
+    def negotiate_many_submit(self, requests: list[dict]) -> NegotiationTicket:
+        """Register and enqueue a batch, waking the cycle loop, without
+        waiting: no HTTP round is made in the caller's thread."""
+        pends = []
+        with self._mu:
+            if self._failure:
+                raise self._failure_error()
+            for req in requests:
+                if req["name"] in self._pending:
+                    raise DuplicateNameError(
+                        f"tensor name {req['name']!r} is already being "
+                        "negotiated; pass a unique name=")
+            for req in requests:
+                pend = _Pending()
+                self._pending[req["name"]] = pend
+                pends.append(pend)
+                meta = {k: v for k, v in req.items()
+                        if k not in ("name", "request_type")}
+                try:
+                    self.engine.enqueue(req["name"], req["request_type"],
+                                        **meta)
+                except Exception:
+                    # roll back the batch's enqueued members; the failing
+                    # one was not enqueued
+                    self._pending.pop(req["name"], None)
+                    for done in requests[:len(pends) - 1]:
+                        self._pending.pop(done["name"], None)
+                        self.engine.abandon(done["name"])
+                    raise
+        self._tick.set()
+        return NegotiationTicket(requests, pends)
+
+    def negotiate_many_wait(self, ticket: NegotiationTicket,
+                            timeout: float | None = None) -> list[Response]:
+        """Block until every plan of the ticket has arrived (the timeout
+        counts from submission); raise on an error plan."""
+        requests, pends = ticket.requests, ticket.pends
+        deadline = timeout if timeout is not None else EXCHANGE_TIMEOUT_S
+        end = ticket.submitted_at + deadline
+        timed_out = False
+        try:
+            for req, pend in zip(requests, pends):
+                if deadline == float("inf"):  # join: block as the reference
+                    while not pend.event.wait(60.0):
+                        if self._failure:
+                            break
+                    continue
+                remaining = end - time.monotonic()
+                if not pend.event.is_set() and (
+                        remaining <= 0 or not pend.event.wait(remaining)):
+                    timed_out = True
+                    undelivered = sorted(r["name"] for r, p in
+                                         zip(requests, pends)
+                                         if p.response is None)
+                    raise HorovodCollectiveError(
+                        f"negotiation of {req['name']!r} timed out after "
+                        f"{deadline}s (some processes never submitted it). "
+                        f"Undelivered tensors: {undelivered}")
+        finally:
+            with self._mu:
+                for req, pend in zip(requests, pends):
+                    self._pending.pop(req["name"], None)
+                    # a timed-out name is dropped from the engine too, so
+                    # that it can be submitted again
+                    if timed_out and pend.response is None:
+                        self.engine.abandon(req["name"])
+        out = []
+        for req, pend in zip(requests, pends):
+            resp = pend.response
+            if resp is None:
+                if self._failure:
+                    raise self._failure_error()
+                raise HorovodCollectiveError(
+                    f"negotiation of {req['name']!r} aborted")
+            if resp.is_error:
+                raise HorovodCollectiveError(resp.error_message)
+            out.append(resp)
+        return out
+
+    def negotiate_many_cancel(self, ticket: NegotiationTicket) -> None:
+        """Release a ticket that will not be waited for: its names leave
+        the pending table and the engine, so they can be used again."""
+        with self._mu:
+            for req, pend in zip(ticket.requests, ticket.pends):
+                self._pending.pop(req["name"], None)
+                if pend.response is None:
+                    self.engine.abandon(req["name"])
+
+    def submit(self, requests: list[dict], issue) -> Queued:
+        """Negotiate ``requests`` and queue ``issue(responses)``, which
+        issues their collective, for :meth:`run_until`."""
+        item = Queued(self.negotiate_many_submit(requests), issue)
+        with self._issue_lock:
+            self._queue.append(item)
+        return item
+
+    def run_until(self, item: Queued | None = None,
+                  block: bool = True) -> None:
+        """Issue the queued collectives whose plans have arrived, in the
+        agreed order: with ``item``, those up to it (waiting for its plan
+        when ``block``), else every arrived one (with ``block``, every
+        queued one). Raises ``item``'s error."""
+        with self._issue_lock:
+            if block:
+                for q in ([item] if item is not None else list(self._queue)):
+                    if not q.issued:
+                        self._wait_plans(q)
+            ready = sorted((q for q in self._queue if q.ticket.ready()),
+                           key=lambda q: q.ticket.order())
+            limit = (item.ticket.order() if item is not None
+                     and item.ticket.ready() else None)
+            for q in ready:
+                if limit is not None and q.ticket.order() > limit:
+                    break
+                self._queue.remove(q)
+                q.issued = True
+                try:
+                    q.result = q.issue(self.negotiate_many_wait(q.ticket))
+                except Exception as e:  # the error of q's owner, not ours
+                    q.error = e
+        if item is not None and item.error is not None:
+            raise item.error
+
+    def _wait_plans(self, q: Queued) -> None:
+        """Wait for ``q``'s plans; a timeout or a failure is its error,
+        and it leaves the queue."""
+        for pend in q.ticket.pends:
+            end = q.ticket.submitted_at + EXCHANGE_TIMEOUT_S
+            if not pend.event.wait(max(end - time.monotonic(), 0.0)):
+                break
+        if q.ticket.ready():
+            return
+        self._queue.remove(q)
+        q.issued = True
+        try:
+            self.negotiate_many_wait(q.ticket, timeout=0.0)
+        except Exception as e:
+            q.error = e
+
+    def stop(self):
+        self._shutdown.set()
+        self._tick.set()  # the adaptive sleep waits on _tick
+        # a cycle thread parked in the gather long-poll may take the
+        # server's wait to notice; it is a daemon, and _fail_all settles
+        # every waiter
+        self._thread.join(timeout=2)
+        self._fail_all("engine service stopped")
+
+    # -- internals ---------------------------------------------------------
+
+    def _failure_error(self) -> Exception:
+        return (self._failure_exc if self._failure_exc is not None
+                else HorovodCollectiveError(self._failure or "service failed"))
+
+    def _fail_all(self, message: str, exc: Exception | None = None):
+        with self._mu:
+            # the failure and the pending snapshot commit together: a
+            # submission either sees the failure or is failed here
+            if exc is not None and self._failure_exc is None:
+                self._failure_exc = exc
+            self._failure = message
+            pend = list(self._pending.values())
+            self._pending.clear()
+        for p in pend:
+            p.event.set()
+
+    def _on_peer_failure(self, dead_rank: int, reason: str) -> None:
+        """A peer stopped exchanging: every waiter fails with a
+        :class:`PeerFailureError` naming it and the tensors still owed."""
+        with self._mu:
+            owed = sorted(self._pending)
+        exc = PeerFailureError(dead_rank, reason, owed)
+        self._fail_all(str(exc), exc)
+        self._shutdown.set()
+        self._tick.set()
+
+    def _awaiting(self) -> bool:
+        """Whether a submitted request still waits for its plan."""
+        with self._mu:
+            return any(p.response is None for p in self._pending.values())
+
+    def _loop(self):
+        if self._device is not None and self._device.type == "cuda":
+            # a joined rank's zero contributions run on this thread
+            torch.cuda.set_device(self._device)
+        while not self._shutdown.is_set():
+            start = time.monotonic()
+            # clear before the cycle: an enqueue racing the cycle sets it
+            # again, and the next sleep is skipped, never lost
+            self._tick.clear()
+            try:
+                self._run_cycle()
+            except PeerFailureError as e:
+                if not self._shutdown.is_set():
+                    hvd_logging.error("%s", e)
+                    self._on_peer_failure(e.rank, e.reason)
+                return
+            except Exception as e:
+                hvd_logging.exception("engine cycle failed")
+                self._fail_all(f"engine negotiation failed: {e}")
+                return
+            cycle_s = envs.get_float(
+                envs.CYCLE_TIME, self._idle_cycle_default_ms) / 1000.0
+            adaptive = envs.get_bool(envs.ADAPTIVE_CYCLE, True)
+            if adaptive:
+                if self._awaiting():  # tick near the transport floor
+                    cycle_s = min(cycle_s, envs.get_float(
+                        envs.PENDING_CYCLE_TIME,
+                        DEFAULT_PENDING_CYCLE_TIME_MS) / 1000.0)
+            remaining = max(0.0, cycle_s - (time.monotonic() - start))
+            if remaining <= 0:
+                continue
+            if adaptive:
+                self._tick.wait(remaining)  # fresh enqueues end the sleep
+            else:
+                self._shutdown.wait(remaining)
+
+    def _run_cycle(self):
+        # the canonical cycle (dynamic.drive_cycle): bits against the
+        # pre-ingest cache on every member, the AND-served set committed
+        # first, then the ingest skips the served names
+        busy = self._awaiting()
+        mine = self.engine.pop_requests()
+        mybits = self.engine.cache_bits()
+        cycle = self._cycle
+        self._cycle += 1
+        datas, bitvs = self.transport.exchange(cycle, mine, mybits,
+                                               EXCHANGE_TIMEOUT_S)
+        if busy:
+            self.rounds += 1
+            self.round_seconds += getattr(self.transport, "last_round_s", 0)
+        self.engine.commit_cache_bits(and_bitvectors(bitvs))
+        for rank, data in enumerate(datas):
+            self.engine.ingest(rank, data)
+        responses = self.engine.compute_responses()
+        if responses:
+            self._deliver(responses)
+        now = time.monotonic()
+        if now - self._last_stall_check > _STALL_CHECK_INTERVAL_S:
+            self._last_stall_check = now
+            self._check_stalls()
+
+    def _deliver(self, responses: list[Response]):
+        # While joined, the plans of tensors this rank never submitted run
+        # with zero inputs (reference JoinOp) before any claimed plan is
+        # delivered: the JOIN completes last in its cycle, so the user
+        # thread cannot race the zero executions.
+        exec_batch: list[Response] = []
+        claimed: list[Response] = []
+        with self._mu:
+            joined = self._joined
+            for resp in responses:
+                if any(t in self._pending for t in resp.tensor_names):
+                    claimed.append(resp)
+                elif joined and not resp.is_error:
+                    exec_batch.append(resp)
+        # a peer is joined (this rank is not, or the plan is claimed):
+        # what zeros cannot stand in for fails here, on every rank
+        peer_joined = self.engine.join_pending()
+        if exec_batch:
+            from .ops import collectives
+            collectives._execute_joined_zeros(exec_batch)  # raises if unsound
+        with self._mu:
+            for resp in claimed:
+                if peer_joined and resp.type in _NOT_JOINABLE:
+                    resp = Response(
+                        type=RESP_ERROR, tensor_names=resp.tensor_names,
+                        error_message=(
+                            f"{resp.type_name} of {resp.tensor_names} while "
+                            "another rank is joined: zero contribution is "
+                            "defined for allreduce, allgather and barrier "
+                            "only (docs/join.md)"))
+                for tname in resp.tensor_names:
+                    pend = self._pending.get(tname)
+                    if pend is not None:
+                        pend.response = resp
+                        pend.order = self._delivered
+                        self._delivered += 1
+                        pend.event.set()
+
+    def _check_stalls(self):
+        if envs.get_bool(envs.STALL_CHECK_DISABLE):
+            return
+        report, shutdown = self.engine.stall_report()
+        for entry in report:
+            hvd_logging.warning(
+                "One or more tensors were submitted to be reduced/gathered "
+                "but were not ready on all processes for %.0f seconds. This "
+                "may indicate diverged control flow. Tensor: %s, ready "
+                "ranks: %s, missing ranks: %s",
+                entry.waiting_seconds, entry.tensor_name, entry.ready_ranks,
+                entry.missing_ranks(self.engine.world_size))
+        if shutdown:
+            self._fail_all(
+                "stalled tensors exceeded HVD_STALL_SHUTDOWN_TIME_SECONDS; "
+                "shutting down negotiation (reference semantics, "
+                "stall_inspector.h:71-86)")
+            self._shutdown.set()
+
+
+# --------------------------------------------------------------------------
+# the process's services: one per process set over its member ranks (the
+# reference's per-ProcessSet controller, process_set.h:26-84), made at the
+# set's first negotiated collective
+# --------------------------------------------------------------------------
+
+_services: dict = {}  # set key -> DynamicService
+_service_lock = threading.Lock()
+_generation = 0  # resets so far: keeps a new world's keys apart
+
+
+def _set_key(pset) -> str:
+    """Stable cross-process key of a process set: its registered id, else
+    a digest of its ranks."""
+    if pset is None or pset.is_global:
+        return "0"
+    if pset.process_set_id is not None:
+        return str(pset.process_set_id)
+    import zlib
+    return "u%x" % (zlib.crc32(repr(tuple(pset.ranks)).encode())
+                    & 0xFFFFFFFF)
+
+
+def enabled() -> bool:
+    """Whether eager collectives negotiate: a launcher's KV store is set,
+    ``HVD_DYNAMIC_ENGINE`` is not 0, and the world has several ranks."""
+    return (envs.get_bool(envs.DYNAMIC_ENGINE, True)
+            and bool(envs.get(envs.KV_ADDR))
+            and runtime.is_initialized() and runtime.size() > 1)
+
+
+def get_service(pset=None) -> DynamicService | None:
+    """The negotiation service of ``pset`` (default: the global set), or
+    None where eager collectives do not negotiate: see :func:`enabled`,
+    and a set of one rank. Raises if the engine does not build."""
+    if not enabled():
+        return None
+    members = (list(range(runtime.size())) if pset is None
+               else pset.ranks)
+    me = runtime.rank()
+    if me not in members or len(members) <= 1:
+        return None
+    key = _set_key(pset)
+    svc = _services.get(key)
+    if svc is not None:
+        return svc
+    with _service_lock:
+        svc = _services.get(key)
+        if svc is None:
+            from .runner.http_kv import KVClient
+            engine = NativeEngine(world_size=len(members),
+                                  rank=members.index(me))
+            kv = KVClient(envs.get(envs.KV_ADDR),
+                          envs.get_int(envs.KV_PORT, 0),
+                          secret=envs.get(envs.SECRET_KEY))
+            # keys scoped to this world instance and this set
+            prefix = "engine/{}:{}/g{}/ps{}".format(
+                os.environ.get("MASTER_ADDR", "local"),
+                os.environ.get("MASTER_PORT", "0"), _generation, key)
+            svc = DynamicService(
+                engine, KVTransport(kv, len(members), members.index(me),
+                                    prefix=prefix),
+                device=runtime.device())
+            _services[key] = svc
+            hvd_logging.info(
+                "negotiation service started for set %s: %d ranks over KV "
+                "%s", key, len(members), envs.get(envs.KV_ADDR))
+    return svc
+
+
+def reset_service() -> None:
+    """Stop every service (at ``shutdown()``); auto-generated names start
+    from zero again."""
+    global _generation
+    with _service_lock:
+        for svc in _services.values():
+            svc.stop()
+        _services.clear()
+        _generation += 1
+    from .ops import collectives
+    collectives._auto_counters.clear()

@@ -15,6 +15,13 @@ uneven ``alltoall`` exchanges the splits first, so that each member learns
 what it receives. The object collectives pickle through
 ``torch.distributed``'s own.
 
+Under a launcher's KV store the eager collectives negotiate before they
+issue (:func:`_gate`, ``engine_service.py``): the plan gives the agreed
+order, the row counts of an allgather and the received splits of an
+uneven alltoall, and :func:`join` lets a rank whose data ran out send
+zeros in its place (:func:`_execute_joined_zeros`). ADASUM reduces by
+``ops/adasum.py`` and is not negotiated, as in the reference.
+
 Dtypes follow the reference: a scale factor on an integer tensor promotes
 it to float32 (``x * pre``), a bool SUM or PRODUCT counts in int32, MIN and
 MAX of bools stay bool, and ``reducescatter`` of bools raises ``TypeError``.
@@ -28,10 +35,13 @@ import torch
 import torch.distributed as dist
 
 from .. import runtime
+from . import adasum
 from ..process_sets import ProcessSet, _resolve
 from ..utils import envs
 from .compression import NoneCompressor
 from .reduce_ops import ReduceOp, handle_average
+from ..dynamic import (REQ_ALLGATHER, REQ_ALLREDUCE, REQ_ALLTOALL,
+                       REQ_BARRIER, REQ_BROADCAST, REQ_REDUCESCATTER)
 
 _DIST_OPS = {
     ReduceOp.SUM: dist.ReduceOp.SUM,
@@ -161,13 +171,63 @@ class Handle:
         card: whether its NCCL work has run)."""
         return self._done or all(w.is_completed() for w in self._works)
 
+    def issue(self) -> None:
+        """Make sure the collective has been issued; a negotiated one
+        waits here for its plan (:class:`_Negotiated`)."""
+
     def then(self, fn) -> "Handle":
         """A handle over the same collective whose result is
         ``fn(this handle's result)``; use it in place of this one."""
         if self._done:
             return Handle(result=fn(self._result))
-        finish = self._finish
-        return Handle(self._works, lambda: fn(finish()))
+        return _Then(self, fn)
+
+
+class _Then(Handle):
+    """``parent``'s collective, its result mapped by ``fn``."""
+
+    def __init__(self, parent: Handle, fn):
+        super().__init__(finish=lambda: fn(parent.synchronize()))
+        self._parent = parent
+
+    def poll(self) -> bool:
+        return self._done or self._parent.poll()
+
+    def issue(self) -> None:
+        self._parent.issue()
+
+
+class _Negotiated(Handle):
+    """A collective queued behind its negotiation (``engine_service``):
+    ``synchronize()`` issues it in the agreed order, with every collective
+    whose plan came before it, and waits for it."""
+
+    def __init__(self, svc, item):
+        super().__init__(finish=self._land)
+        self._svc, self._item = svc, item
+
+    def _land(self):
+        self.issue()
+        return self._item.result.synchronize()
+
+    def issue(self) -> None:
+        """Issue the collective, waiting for its plan, with every queued
+        one whose plan came before it: a deterministic point of the
+        program, the same on every rank."""
+        self._svc.run_until(self._item)
+
+    def poll(self) -> bool:
+        """Whether the collective has finished; issues the collectives
+        whose plans have arrived, without waiting (where a plan arrives
+        between two polls differs between ranks, so a program that polls
+        issues no other collective on the same ranks meanwhile)."""
+        if self._done:
+            return True
+        try:
+            self._svc.run_until(self._item, block=False)
+        except Exception:
+            return True  # finished in error: synchronize() raises it
+        return self._item.issued and self._item.result.poll()
 
 
 def poll(handle: Handle) -> bool:
@@ -179,6 +239,92 @@ def synchronize(handle: Handle):
     """Wait for ``handle``'s collective and return its result (reference
     ``synchronize``)."""
     return handle.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the negotiation gate (engine_service.py): under a launcher's KV store every
+# eager collective below negotiates before it issues
+# ---------------------------------------------------------------------------
+
+# dtype ids of the negotiated metadata, the JAX package's table: only
+# equality matters, and the table is the same on every rank
+_DTYPE_NAMES = ("bool", "int8", "uint8", "int16", "uint16", "int32",
+                "uint32", "int64", "uint64", "float16", "bfloat16",
+                "float32", "float64", "complex64", "complex128")
+_DTYPE_IDS = {name: i for i, name in enumerate(_DTYPE_NAMES)}
+
+
+def _dtype_id(dt: torch.dtype) -> int:
+    name = str(dt).removeprefix("torch.")
+    known = _DTYPE_IDS.get(name)
+    if known is not None:
+        return known
+    # an unlisted dtype (fp8 variants) gets an id from its name: crc32 is
+    # the same in every process, unlike hash()
+    import zlib
+    return 0x4000_0000 | (zlib.crc32(name.encode()) & 0x3FFF_FFFF)
+
+
+def _dtype_of_id(i: int) -> torch.dtype:
+    if not 0 <= i < len(_DTYPE_NAMES):
+        raise RuntimeError(f"hvd.join(): cannot rebuild dtype id {i}")
+    return getattr(torch, _DTYPE_NAMES[i])
+
+
+_auto_counters: dict = {}  # (kind, set key) -> next index
+
+
+def _auto_name(kind: str, pset: ProcessSet) -> str:
+    """The next name of a ``kind`` op over ``pset``: counted per (kind,
+    set), so that ranks outside a set, which never see its ops, do not
+    fall behind on the global ones' names."""
+    from .. import engine_service
+    key = (kind, engine_service._set_key(pset))
+    n = _auto_counters.get(key, 0)
+    _auto_counters[key] = n + 1
+    return f"{kind}.{n}" if key[1] == "0" else f"{kind}.ps{key[1]}.{n}"
+
+
+def _follow_auto_name(name: str) -> None:
+    """A joined rank runs zeros for its peers' ops without naming them:
+    its counter of ``name``'s kind moves past ``name`` as theirs did."""
+    parts = name.split(".")
+    if len(parts) >= 2 and parts[1].isdigit():
+        key = (parts[0], "0")
+        _auto_counters[key] = max(_auto_counters.get(key, 0),
+                                  int(parts[1]) + 1)
+
+
+def _request(name: str, request_type: int, shape, dtype: torch.dtype,
+             **meta) -> dict:
+    """One negotiation request in the engine's wire format."""
+    return dict(name=name, request_type=request_type,
+                dtype=_dtype_id(dtype), element_size=dtype.itemsize,
+                shape=tuple(int(d) for d in shape), **meta)
+
+
+def _group_requests(base: str, request_type: int, shapes_dtypes,
+                    **meta) -> list[dict]:
+    """A grouped op's requests, named ``{base}.{i}``, with a group id from
+    the base (the same on every rank): the engine schedules the group as
+    one, and a joined rank finds the group's members by it."""
+    import zlib
+    gid = zlib.crc32(base.encode()) & 0x7FFFFFFF
+    return [_request(f"{base}.{i}", request_type, shape, dtype,
+                     group_id=gid, **meta)
+            for i, (shape, dtype) in enumerate(shapes_dtypes)]
+
+
+def _gate(pset: ProcessSet, kind: str, name, requests, issue) -> Handle:
+    """``issue(responses)``, a Handle: at once where no negotiation
+    service runs for ``pset`` (``issue(None)``), else queued behind the
+    negotiation of ``requests(base name)``."""
+    from .. import engine_service
+    svc = engine_service.get_service(pset)
+    if svc is None:
+        return issue(None)
+    item = svc.submit(requests(name or _auto_name(kind, pset)), issue)
+    return _Negotiated(svc, item)
 
 
 def grouped_allreduce_async(tensors: Sequence[torch.Tensor], *,
@@ -197,20 +343,28 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor], *,
     ``compress``/``decompress`` and no wire dtype wraps each tensor and
     reduces what it makes, without wire-dtype fusion. With
     ``HVD_HIERARCHICAL_ALLREDUCE`` set, a SUM or AVERAGE over the global
-    set reduces two-level (``ops/hierarchical.py``)."""
-    del name  # labels the op in the reference's timeline; no timeline here
+    set reduces two-level (``ops/hierarchical.py``). ``op=Adasum``
+    combines each tensor by Adasum (``ops/adasum.py``) and, as in the
+    reference, ignores the scales and the compressor and is not
+    negotiated. Under a negotiation service (``engine_service.py``) the
+    call negotiates ``name`` (default: the next ``allreduce.<n>``) before
+    it issues."""
     pset = _resolve(process_set)
     return _reduce_async(tensors, op=op, prescale_factor=prescale_factor,
                          postscale_factor=postscale_factor,
                          compression=compression, size=pset.size(),
-                         reduce=_reducer(pset, op))
+                         reduce=_reducer(pset, op), negotiate=pset,
+                         name=name)
 
 
 def _reducer(pset: ProcessSet, op: ReduceOp):
     """The reducer of a wire buffer over ``pset`` for
     :func:`_reduce_async`: two-level where ``HVD_HIERARCHICAL_ALLREDUCE``
-    routes ``op`` over the set, else one flat ``all_reduce``."""
+    routes ``op`` over the set, else one flat ``all_reduce``; for ADASUM
+    the ``adasum.Route`` over the set."""
     from . import hierarchical
+    if op == ReduceOp.ADASUM:
+        return adasum.route_for(pset)
     if (op in (ReduceOp.SUM, ReduceOp.AVERAGE)
             and hierarchical.enabled(envs.HIERARCHICAL_ALLREDUCE, pset)):
         return hierarchical.two_level_reducer(*hierarchical.level_groups())
@@ -225,25 +379,39 @@ def _reducer(pset: ProcessSet, op: ReduceOp):
 
 def _reduce_async(tensors, *, op: ReduceOp, prescale_factor: float,
                   postscale_factor: float, compression, size: int,
-                  reduce) -> Handle:
+                  reduce, negotiate: ProcessSet | None = None,
+                  name: str | None = None) -> Handle:
     """The body of :func:`grouped_allreduce_async` over ``size`` ranks:
     checks, the custom compressor's wrap, AVERAGE's lowering, the scales,
     the fusion, then ``reduce(buffer, dist_op) -> (work or None,
-    result)`` for each wire buffer, and the unpack at ``synchronize()``."""
+    result)`` for each wire buffer, and the unpack at ``synchronize()``.
+    For ADASUM ``reduce`` is an ``adasum.Route``. With ``negotiate`` (a
+    process set) the wire buffers are issued behind the set's
+    negotiation of ``name``: each tensor's request carries its wire dtype
+    and shape, and the op and scales as given, which is what a joined rank
+    needs to send zeros in their place (:func:`_execute_joined_zeros`)."""
     tensors = list(tensors)
     if not tensors:
         return Handle(result=[])
     for t in tensors:
         _check_op_dtype(op, t.dtype)
     if op == ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "Adasum is not ported yet (ROADMAP.md queue A, item A9b)")
+        # the reference's Adasum returns before the compressor and the
+        # scales: an eager Adasum ignores both
+        results: list = [None] * len(tensors)
+        for _, idxs in _fusion_buckets(
+                tensors, envs.fusion_threshold_bytes(), lambda t: t.numel(),
+                dtype_of=lambda i: torch.float32):
+            outs = adasum.reduce_tensors([tensors[i] for i in idxs], reduce)
+            for i, o in zip(idxs, outs):
+                results[i] = o
+        return Handle(result=results)
     if _is_custom_compressor(compression):
         pairs = [compression.compress(t) for t in tensors]
         handle = _reduce_async(
             [c for c, _ in pairs], op=op, prescale_factor=prescale_factor,
             postscale_factor=postscale_factor, compression=None, size=size,
-            reduce=reduce)
+            reduce=reduce, negotiate=negotiate, name=name)
         return handle.then(lambda outs: [
             compression.decompress(o, ctx)
             for o, (_, ctx) in zip(outs, pairs)])
@@ -256,17 +424,26 @@ def _reduce_async(tensors, *, op: ReduceOp, prescale_factor: float,
     wire = [_wire_dtype_of(t, compression) for t in tensors]
     outs = [_reduced_dtype(t.dtype, lowered, post) for t in tensors]
     bufs, metas = _fuse_by_dtype(tensors, wire, outs)
-    reduced = [reduce(buf, _DIST_OPS[lowered]) for buf in bufs]
-    results = [r for _, r in reduced]
 
-    def finish():
-        scaled = results
-        if post != 1.0:  # out of place: an integer buffer turns float32
-            scaled = [b.mul_(post) if b.is_floating_point() else b * post
-                      for b in results]
-        return _split_fused(scaled, metas, len(tensors))
+    def issue(_responses=None) -> Handle:
+        reduced = [reduce(buf, _DIST_OPS[lowered]) for buf in bufs]
+        results = [r for _, r in reduced]
 
-    return Handle([w for w, _ in reduced if w is not None], finish)
+        def finish():
+            scaled = results
+            if post != 1.0:  # out of place: an integer buffer turns float32
+                scaled = [b.mul_(post) if b.is_floating_point()
+                          else b * post for b in results]
+            return _split_fused(scaled, metas, len(tensors))
+
+        return Handle([w for w, _ in reduced if w is not None], finish)
+
+    if negotiate is None:
+        return issue()
+    return _gate(negotiate, "allreduce", name, lambda base: _group_requests(
+        base, REQ_ALLREDUCE, [(t.shape, w) for t, w in zip(tensors, wire)],
+        reduce_op=int(op), prescale=float(prescale_factor),
+        postscale=float(postscale_factor)), issue)
 
 
 def grouped_allreduce(tensors: Sequence[torch.Tensor], **kw) -> list:
@@ -299,8 +476,8 @@ def grouped_broadcast_async(tensors: Sequence[torch.Tensor], root_rank: int,
                             name: str | None = None) -> Handle:
     """Start a broadcast of a tensor list from the global rank
     ``root_rank`` over ``process_set``, fused into one wire buffer per
-    dtype; the handle's result is the new tensors."""
-    del name
+    dtype; the handle's result is the new tensors. Negotiated under a
+    service, as an allreduce is."""
     tensors = list(tensors)
     pset = _resolve(process_set)
     group = pset.group()
@@ -308,9 +485,15 @@ def grouped_broadcast_async(tensors: Sequence[torch.Tensor], root_rank: int,
         return Handle(result=[])
     _check_root(root_rank, pset)
     bufs, metas = _fuse_by_dtype(tensors)
-    works = [dist.broadcast(buf, src=root_rank, group=group, async_op=True)
-             for buf in bufs]
-    return Handle(works, lambda: _split_fused(bufs, metas, len(tensors)))
+
+    def issue(_responses=None) -> Handle:
+        works = [dist.broadcast(buf, src=root_rank, group=group,
+                                async_op=True) for buf in bufs]
+        return Handle(works, lambda: _split_fused(bufs, metas, len(tensors)))
+
+    return _gate(pset, "broadcast", name, lambda base: _group_requests(
+        base, REQ_BROADCAST, [(t.shape, t.dtype) for t in tensors],
+        root_rank=root_rank), issue)
 
 
 def grouped_broadcast(tensors: Sequence[torch.Tensor], root_rank: int,
@@ -333,8 +516,17 @@ def broadcast(tensor: torch.Tensor, root_rank: int, **kw) -> torch.Tensor:
 
 
 def barrier(*, process_set: ProcessSet | None = None) -> None:
-    """Block until every rank of ``process_set`` reaches the barrier."""
-    dist.barrier(group=_resolve(process_set).group())
+    """Block until every rank of ``process_set`` reaches the barrier; a
+    joined rank counts as arrived."""
+    pset = _resolve(process_set)
+    group = pset.group()
+
+    def issue(_responses=None) -> Handle:
+        dist.barrier(group=group)
+        return Handle(result=None)
+
+    _gate(pset, "barrier", None, lambda base: [
+        _request(base, REQ_BARRIER, (), torch.int32)], issue).synchronize()
 
 
 _MAX_DIMS = 8  # rank of the shapes allgather's metadata exchange carries
@@ -359,33 +551,55 @@ def allgather_async(tensor: torch.Tensor, *,
                     process_set: ProcessSet | None = None,
                     name: str | None = None) -> Handle:
     """Start an allgather (reference ``hvd.allgather_async``); see
-    :func:`allgather`. The shapes are exchanged before this returns; the
-    handle's result is the concatenation. With ``HVD_HIERARCHICAL_ALLGATHER``
+    :func:`allgather`. Without a negotiation service the shapes are
+    exchanged before this returns; the handle's result is the
+    concatenation. With ``HVD_HIERARCHICAL_ALLGATHER``
     set, a gather over the global set runs two-level
-    (``ops/hierarchical.py``)."""
-    del name
-    from . import hierarchical
+    (``ops/hierarchical.py``). Under a negotiation service the row counts
+    come with the plan (a joined rank's are 0), and no shape exchange is
+    needed."""
     pset = _resolve(process_set)
-    group = pset.group()
-    levels = ()
-    if hierarchical.enabled(envs.HIERARCHICAL_ALLGATHER, pset):
-        levels = hierarchical.level_groups()
-    return _allgather_async(tensor, group, pset.size(), *levels)
+
+    def issue(responses=None) -> Handle:
+        rows = None
+        if responses is not None:  # a scalar is one row of every rank's
+            rows = ([1] * pset.size() if tensor.dim() == 0
+                    else list(responses[0].recv_splits))
+        return _allgather_async(tensor, pset, rows=rows)
+
+    return _gate(pset, "allgather", name, lambda base: [
+        _request(base, REQ_ALLGATHER, tensor.shape, tensor.dtype)], issue)
 
 
-def _allgather_async(tensor: torch.Tensor, group, size: int,
-                     *levels) -> Handle:
-    """The body of :func:`allgather_async` over the ``size`` ranks of
-    ``group``, flat, or two-level over ``levels`` (``(local, cross,
-    local size, cross size)`` of ``hierarchical.level_groups``)."""
+def _gather_levels(pset: ProcessSet) -> tuple:
+    """The two-level allgather's groups where ``HVD_HIERARCHICAL_ALLGATHER``
+    routes a gather over ``pset``, else ()."""
     from . import hierarchical
+    if hierarchical.enabled(envs.HIERARCHICAL_ALLGATHER, pset):
+        return hierarchical.level_groups()
+    return ()
+
+
+def _allgather_async(tensor: torch.Tensor, pset: ProcessSet | None,
+                     *levels, rows=None) -> Handle:
+    """The body of :func:`allgather_async` over ``pset`` (None: the
+    world), flat, or two-level over ``levels`` (``(local, cross, local
+    size, cross size)`` of ``hierarchical.level_groups``; default: as the
+    knob routes ``pset``). ``rows`` is every member's row count, where
+    the negotiation gave it; else the shapes are exchanged first."""
+    from . import hierarchical
+    group = None if pset is None else pset.group()
+    size = runtime.size() if pset is None else pset.size()
+    if not levels and pset is not None:
+        levels = _gather_levels(pset)
     x = (tensor.reshape(1) if tensor.dim() == 0 else tensor).contiguous()
-    shapes = _all_shapes(x, size, group)
-    if len({s[1:] for s in shapes}) > 1:
-        raise ValueError(
-            "allgather tensors must agree on every dimension except the "
-            f"first, got shapes {shapes}")
-    rows = [s[0] for s in shapes]
+    if rows is None:
+        shapes = _all_shapes(x, size, group)
+        if len({s[1:] for s in shapes}) > 1:
+            raise ValueError(
+                "allgather tensors must agree on every dimension except the "
+                f"first, got shapes {shapes}")
+        rows = [s[0] for s in shapes]
     width = max(rows)
     if width == 0:
         return Handle(result=x.new_empty((0,) + x.shape[1:]))
@@ -424,8 +638,8 @@ def alltoall(tensor: torch.Tensor, splits=None, *,
     less than dim 0 (trailing rows are not sent). Returns ``(output,
     recv_splits)``, ``recv_splits[j]`` (int32) the rows received from rank
     j. The JAX package's single controller takes the whole ``(size, size)``
-    matrix instead; each of its rows is one rank's ``splits`` here."""
-    del name
+    matrix instead; each of its rows is one rank's ``splits`` here. Under
+    a negotiation service the received splits come with the plan."""
     pset = _resolve(process_set)
     group = pset.group()
     n = pset.size()
@@ -435,9 +649,15 @@ def alltoall(tensor: torch.Tensor, splits=None, *,
         if d0 % n != 0:
             raise ValueError(f"alltoall dim0 ({d0}) must be divisible "
                              f"by process set size ({n})")
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=group)
-        return out
+
+        def issue_even(_responses=None) -> Handle:
+            out = torch.empty_like(x)
+            dist.all_to_all_single(out, x, group=group)
+            return Handle(result=out)
+
+        return _gate(pset, "alltoall", name, lambda base: [
+            _request(base, REQ_ALLTOALL, x.shape, x.dtype)],
+            issue_even).synchronize()
     row = torch.as_tensor(splits)
     if row.shape != (n,):
         raise ValueError(f"splits must be one row of length {n}, got shape "
@@ -449,14 +669,23 @@ def alltoall(tensor: torch.Tensor, splits=None, *,
         raise ValueError(
             f"sum of splits entries exceeds the first dimension ({d0}) "
             "(reference operations.cc:1703-1707)")
-    send_t = torch.tensor(send, dtype=torch.int64, device=x.device)
-    recv_t = torch.empty_like(send_t)
-    dist.all_to_all_single(recv_t, send_t, group=group)
-    recv = recv_t.tolist()
-    out = x.new_empty((sum(recv),) + x.shape[1:])
-    dist.all_to_all_single(out, x[:sum(send)], output_split_sizes=recv,
-                           input_split_sizes=send, group=group)
-    return out, torch.tensor(recv, dtype=torch.int32)
+
+    def issue(responses=None) -> Handle:
+        if responses is None:
+            send_t = torch.tensor(send, dtype=torch.int64, device=x.device)
+            recv_t = torch.empty_like(send_t)
+            dist.all_to_all_single(recv_t, send_t, group=group)
+            recv = recv_t.tolist()
+        else:
+            recv = [int(r) for r in responses[0].recv_splits]
+        out = x.new_empty((sum(recv),) + x.shape[1:])
+        dist.all_to_all_single(out, x[:sum(send)], output_split_sizes=recv,
+                               input_split_sizes=send, group=group)
+        return Handle(result=(out, torch.tensor(recv, dtype=torch.int32)))
+
+    return _gate(pset, "alltoall", name, lambda base: [
+        _request(base, REQ_ALLTOALL, x.shape, x.dtype, splits=send)],
+        issue).synchronize()
 
 
 def reducescatter(tensor: torch.Tensor, *, op: ReduceOp = ReduceOp.SUM,
@@ -465,7 +694,6 @@ def reducescatter(tensor: torch.Tensor, *, op: ReduceOp = ReduceOp.SUM,
     """Reduce every member's tensor and give the set's r-th member the r-th
     of ``size`` equal chunks along dim 0 (reference ``hvd.reducescatter``).
     ``op`` is SUM or AVERAGE (SUM, then a postscale of ``1/size``)."""
-    del name
     pset = _resolve(process_set)
     group = pset.group()
     if tensor.dtype == torch.bool:  # the reference's jnp add refuses bools
@@ -482,11 +710,18 @@ def reducescatter(tensor: torch.Tensor, *, op: ReduceOp = ReduceOp.SUM,
         raise ValueError(f"reducescatter dim0 ({x.shape[0] if x.dim() else 1}"
                          f") must be divisible by process set size ({n})")
     lowered, post = handle_average(op, n, 1.0)
-    out = x.new_empty((x.shape[0] // n,) + x.shape[1:])
-    dist.reduce_scatter_tensor(out, x, op=_DIST_OPS[lowered], group=group)
-    if post != 1.0:
-        out.mul_(post)
-    return out
+
+    def issue(_responses=None) -> Handle:
+        out = x.new_empty((x.shape[0] // n,) + x.shape[1:])
+        dist.reduce_scatter_tensor(out, x, op=_DIST_OPS[lowered],
+                                   group=group)
+        if post != 1.0:
+            out.mul_(post)
+        return Handle(result=out)
+
+    return _gate(pset, "reducescatter", name, lambda base: [
+        _request(base, REQ_REDUCESCATTER, x.shape, x.dtype,
+                 reduce_op=int(op))], issue).synchronize()
 
 
 def broadcast_object(obj, root_rank: int = 0, *,
@@ -518,3 +753,78 @@ def allgather_object(obj, *, process_set: ProcessSet | None = None,
     out = [None] * pset.size()
     dist.all_gather_object(out, obj, group=group)
     return out
+
+
+def _execute_joined_zeros(responses) -> None:
+    """A joined rank's part in the collectives its peers scheduled
+    (reference ``JoinOp``, ``collective_operations.h:275-290``): zeros of
+    the negotiated dtypes and shapes to each allreduce, through the same
+    fusion and reducer as the peers', zero rows to each allgather, and its
+    arrival to each barrier, in the agreed order. Runs on the service's
+    cycle thread while this rank's own thread is blocked in :func:`join`;
+    any other collective raises (docs/join.md)."""
+    pset = _resolve(None)
+    dev = runtime.device()
+    units: dict = {}  # key -> [position of its last name, response, parts]
+    position = 0
+    for resp in responses:
+        for i, tname in enumerate(resp.tensor_names):
+            _follow_auto_name(tname)
+            if resp.type == REQ_ALLREDUCE:
+                gid = resp.group_ids[i] if i < len(resp.group_ids) else -1
+                unit = units.setdefault(("allreduce", gid if gid >= 0
+                                         else tname), [0, resp, []])
+                unit[2].append((tname, resp.shapes[i], resp.dtype))
+            elif resp.type in (REQ_ALLGATHER, REQ_BARRIER):
+                unit = units.setdefault((resp.type, tname), [0, resp, []])
+            else:
+                raise RuntimeError(
+                    f"hvd.join(): another rank scheduled a "
+                    f"{resp.type_name} ({resp.tensor_names}) while this one "
+                    "is joined; zero contribution is defined for "
+                    "allreduce, allgather and barrier only (reference "
+                    "JoinOp semantics)")
+            unit[0] = position
+            position += 1
+    for (kind, _), (_, resp, parts) in sorted(units.items(),
+                                              key=lambda kv: kv[1][0]):
+        if kind == REQ_BARRIER:
+            dist.barrier()
+        elif kind == REQ_ALLGATHER:
+            # zero rows; a scalar gather takes one zero of every rank, as
+            # the reference's (n, 1) program does
+            shape = tuple(resp.shapes[0]) if resp.shapes else ()
+            rows = ([1] * pset.size() if not shape
+                    else list(resp.recv_splits))
+            zeros = torch.zeros((1 - bool(shape),) + shape[1:], device=dev,
+                                dtype=_dtype_of_id(resp.dtype))
+            _allgather_async(zeros, pset, rows=rows).synchronize()
+        else:  # one grouped allreduce, its tensors in the peers' order
+            parts.sort(key=lambda p: int(p[0].rsplit(".", 1)[1]))
+            op = ReduceOp(resp.reduce_op)
+            _reduce_async(
+                [torch.zeros(shape, dtype=_dtype_of_id(dt), device=dev)
+                 for _, shape, dt in parts], op=op, prescale_factor=1.0,
+                postscale_factor=1.0, compression=None, size=pset.size(),
+                reduce=_reducer(pset, op)).synchronize()
+
+
+def join() -> int:
+    """Reference ``hvd.join`` (``operations.cc:1729-1761``): a rank whose
+    data ran out drops out. Until every rank has joined, it contributes
+    zeros to the allreduces the others still run (an AVERAGE still
+    divides by the whole world), zero rows to their allgathers, and counts
+    as arrived at their barriers; a broadcast, alltoall or reducescatter
+    meanwhile raises on every rank. Returns the last rank to join, the
+    same on every rank. The rank's own queued collectives are issued
+    first. Without a negotiation service it is a barrier that returns
+    ``size() - 1``."""
+    from .. import engine_service
+    pset = _resolve(None)
+    svc = engine_service.get_service(pset)
+    if svc is None:
+        barrier()
+        return runtime.size() - 1
+    svc.run_until()
+    last = svc.join(_auto_name("join", pset))
+    return runtime.size() - 1 if last < 0 else last

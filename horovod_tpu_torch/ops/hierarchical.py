@@ -201,5 +201,4 @@ def hierarchical_allgather(tensor: torch.Tensor, *,
     del name
     from . import collectives
     return collectives._allgather_async(
-        tensor, None, runtime.size(),
-        *level_groups(ici_size)).synchronize()
+        tensor, None, *level_groups(ici_size)).synchronize()

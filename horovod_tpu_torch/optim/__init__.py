@@ -16,6 +16,15 @@ the parameters' gradients over the ranks while the backward pass runs:
   buckets that are left, with a gradient that never landed sent as zeros,
   reduces the sparse-routed gradients, waits for every bucket and writes
   the results to ``.grad``; then the wrapped optimizer steps.
+* ``op=Adasum`` combines each gradient by Adasum (``ops/adasum.py``),
+  one set of coefficients per gradient, its buckets started in the
+  backward pass as the others; it takes no scale factors and ignores the
+  compressor, as the reference's eager Adasum does.
+* Under a negotiation service (``engine_service.py``) each bucket
+  negotiates: its hook submits the request, without waiting for a KV
+  round, and the bucket is issued at the next bucket's start (waiting for
+  its plan there) or at ``synchronize()``. With ``hvd.join()``, a rank
+  whose data ran out sends zeros in its place.
 * ``mesh_spec`` (a ``parallel.mesh.MeshLayout``) reduces every bucket
   two-level over the layout (the node, then ``dcn``): the reference's
   composed step, whose ``pmean`` over the ``seq`` or ``expert`` axis comes
@@ -113,9 +122,14 @@ class DistributedOptimizer:
                  mesh_spec=None):
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
+        if op == ReduceOp.ADASUM and (prescale_factor != 1.0
+                                      or postscale_factor != 1.0):
+            raise ValueError("Adasum is scale-invariant; pre/post scale "
+                             "factors do not apply")
         # (reducer, ranks) of every bucket; over a process set it is made
         # at the first bucket, since the optimizer may precede init()
         self._reducer = None
+        self._negotiate = mesh_spec is None  # the composed sync is traced
         if mesh_spec is not None:
             from ..parallel import mesh as composed
             if process_set is not None or sparse_gradient_paths:
@@ -229,7 +243,14 @@ class DistributedOptimizer:
         self._handles[b] = collectives._reduce_async(
             grads, op=self._op, prescale_factor=self._pre,
             postscale_factor=self._post, compression=self._compression,
-            size=size, reduce=reduce)
+            size=size, reduce=reduce,
+            negotiate=self._pset if self._negotiate else None)
+        if b:
+            # a negotiated bucket is issued at the next one's start, or at
+            # synchronize(): a point of the program, the same on every rank
+            # (where its plan arrives is not), so it keeps its place among
+            # the other collectives of the world's communicator
+            self._handles[b - 1].issue()
         self._next = b + 1
 
     def _fold(self) -> None:

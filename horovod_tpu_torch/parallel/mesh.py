@@ -257,13 +257,17 @@ def layout_of(mesh_spec) -> MeshLayout:
     return default_layout()
 
 
-def _check_op(op):
-    """``op`` (default AVERAGE) if the two-level sync takes it."""
+def _check_op(op, prescale_factor: float = 1.0,
+              postscale_factor: float = 1.0):
+    """``op`` (default AVERAGE) if the two-level sync takes it; Adasum
+    takes no scale factors (reference ``mesh.py``)."""
     from ..ops.reduce_ops import ReduceOp
     op = ReduceOp.AVERAGE if op is None else op
     if op == ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "Adasum is not ported yet (ROADMAP.md queue A, item A9b)")
+        if prescale_factor != 1.0 or postscale_factor != 1.0:
+            raise ValueError("Adasum is scale-invariant; pre/post scale "
+                             "factors do not apply")
+        return op
     if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
         raise ValueError(
             f"hierarchical allreduce supports SUM/AVERAGE, got {op.name}")
@@ -283,14 +287,22 @@ def sync_gradients(tree, lay: MeshLayout | None = None, *, op=None,
     covers this rank's tokens alone, and is the caller's to average over
     that axis first (the reference's composed step does it with ``pmean``;
     ``DistributedOptimizer(mesh_spec=)`` does both). ``ReduceOp.ADASUM``
-    raises until Adasum is ported (ROADMAP A9b)."""
-    from ..ops import collectives, hierarchical
+    sums over ``ici_dp`` and combines across ``dcn`` by Adasum, with one
+    set of coefficients per tensor (``ops/adasum.py``'s two-level route);
+    it takes no scale factors."""
+    from ..ops import adasum, collectives, hierarchical
+    from ..ops.reduce_ops import ReduceOp
     from ..optim import _flatten
     lay = default_layout() if lay is None else lay
-    op = _check_op(op)
+    op = _check_op(op, prescale_factor, postscale_factor)
     groups = composed_mesh(lay)
-    reduce = hierarchical.two_level_reducer(
-        groups[ICI_DP_AXIS], groups[DCN_AXIS], lay.ici_dp, lay.dcn)
+    if op == ReduceOp.ADASUM:
+        reduce = adasum.two_level_route(
+            groups[ICI_DP_AXIS], lay.axis_ranks(ICI_DP_AXIS),
+            lay.axis_ranks(DCN_AXIS))
+    else:
+        reduce = hierarchical.two_level_reducer(
+            groups[ICI_DP_AXIS], groups[DCN_AXIS], lay.ici_dp, lay.dcn)
     leaves, build = _flatten(tree)
     return build(collectives._reduce_async(
         leaves, op=op, prescale_factor=prescale_factor,
@@ -308,9 +320,13 @@ def step_reducer(lay: MeshLayout, op) -> tuple:
     parameter whole (the MoE FFN keeps its experts replicated, with the
     grad boost that this mean undoes) and splits the tokens; any other
     model axis (``stage``'s stages) holds different parameters on its
-    ranks, so it raises :class:`MeshLayoutError`."""
-    from ..ops import hierarchical
-    _check_op(op)
+    ranks, so it raises :class:`MeshLayoutError`. For ADASUM the reducer
+    is ``ops/adasum.py``'s two-level route: the node's sum, scaled by
+    ``ici_dp / node`` to the mean over the model axes, then Adasum across
+    ``dcn``."""
+    from ..ops import adasum, hierarchical
+    from ..ops.reduce_ops import ReduceOp
+    op = _check_op(op)
     other = [n for n in lay.model_axis_names if n not in REPLICATED_AXES]
     if other:
         raise MeshLayoutError(
@@ -320,6 +336,12 @@ def step_reducer(lay: MeshLayout, op) -> tuple:
             f"process_set= instead")
     node = lay.size // lay.dcn
     groups = mesh_for_axes((DCN_AXIS, "node"), (lay.dcn, node))
+    if op == ReduceOp.ADASUM:
+        shape, axes = (lay.dcn, node), (DCN_AXIS, "node")
+        of = lambda i: axis_partition(axes, shape, axes[i])[  # noqa: E731
+            _coord_key(shape, i, runtime.rank())]
+        return adasum.two_level_route(groups["node"], of(1), of(0),
+                                      scale=lay.ici_dp / node), lay.size
     return hierarchical.two_level_reducer(
         groups["node"], groups[DCN_AXIS], node, lay.dcn), lay.size
 

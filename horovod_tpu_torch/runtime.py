@@ -117,6 +117,8 @@ def shutdown() -> None:
     global _state
     if _state is None:
         return
+    from . import engine_service  # deferred: it imports this module
+    engine_service.reset_service()  # before the groups its joins may use
     if dist.is_initialized():
         if _state.process_set_table is not None:
             _state.process_set_table.clear()

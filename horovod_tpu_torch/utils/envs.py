@@ -24,6 +24,18 @@ MESH_AXES = "MESH_AXES"  # model-axis carve, e.g. "seq:2" or "expert:4,stage:2"
 # watchdog then aborts the rank, dumping its flight recorder if
 # TORCH_NCCL_DUMP_ON_TIMEOUT is set.
 PROCESS_GROUP_TIMEOUT = "PROCESS_GROUP_TIMEOUT"
+# The negotiation service of multi-process eager collectives
+# (engine_service.py): on by default where a launcher's KV store is set
+DYNAMIC_ENGINE = "DYNAMIC_ENGINE"  # 0 disables multi-process negotiation
+KV_ADDR = "KV_ADDR"  # the launcher's KV server (runner/http_kv.py)
+KV_PORT = "KV_PORT"
+SECRET_KEY = "SECRET_KEY"  # the job's HMAC secret of KV messages
+STALL_CHECK_DISABLE = "STALL_CHECK_DISABLE"
+STALL_CHECK_TIME_SECONDS = "STALL_CHECK_TIME_SECONDS"  # warn after (60 s)
+STALL_SHUTDOWN_TIME_SECONDS = "STALL_SHUTDOWN_TIME_SECONDS"  # 0: never
+CYCLE_TIME = "CYCLE_TIME"  # ms between idle negotiation cycles
+ADAPTIVE_CYCLE = "ADAPTIVE_CYCLE"  # event-driven negotiation tick (default on)
+PENDING_CYCLE_TIME = "PENDING_CYCLE_TIME"  # ms; cycle floor while work is in flight
 
 _PREFIXES = ("HVD_", "HOROVOD_")
 
@@ -31,6 +43,8 @@ _PREFIXES = ("HVD_", "HOROVOD_")
 # of it for the optimizer's gradient buckets, as in the JAX package.
 DEFAULT_FUSION_THRESHOLD_BYTES = 128 * 1024 * 1024
 DEFAULT_BUCKET_BYTES = 64 * 1024 * 1024
+# the reference's stall warning (stall_inspector.h:78)
+DEFAULT_STALL_WARNING_SECONDS = 60.0
 
 
 def get(name: str, default: str | None = None) -> str | None:
@@ -55,6 +69,16 @@ def get_int(name: str, default: int) -> int:
         return default
     try:
         return int(val)
+    except ValueError:
+        return default
+
+
+def get_float(name: str, default: float) -> float:
+    val = get(name)
+    if val is None:
+        return default
+    try:
+        return float(val)
     except ValueError:
         return default
 

@@ -710,11 +710,12 @@ def test_cuda_nccl_world4_moe_transformer_matches_one_card(
         assert res["launches"].tolist() == [4 * CARD_STEPS] * 3
 
 
-def _twin_world4(module: str, argv: list, tmp_path, env=None) -> list:
+def _twin_world4(module: str, argv: list, tmp_path, env=None,
+                 kv: bool = False) -> list:
     from test_torch_world2 import spawn_world
     import sys
     return spawn_world(lambda rank: [sys.executable, "-m", module, *argv], 4,
-                       env=env, trace_dir=tmp_path)
+                       env=env, trace_dir=tmp_path, kv=kv)
 
 
 @pytest.mark.cuda
@@ -832,3 +833,128 @@ def test_cuda_nccl_world4_moe_alltoall_and_pipeline_match_cpu(
                                            atol=1e-7)
                 np.testing.assert_array_equal(res[key + "gx"],
                                               ranks[0][key + "gx"])
+
+
+# --------------------------------------------------------------------------
+# Adasum and the negotiation service over four cards
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 3])
+def test_cuda_nccl_world4_adasum_matches_numpy(four_cards, n, tmp_path):
+    """``adasum_allreduce`` of a 2**20-element float32 vector a card over
+    NCCL at 4 ranks and at 3 (on three of the cards: the fold of the
+    tail), against the float64 numpy model, rtol 1e-5 atol 1e-6 as on the
+    CPU; at 4 ranks in two nodes of two, the two-level Adasum against the
+    model's Adasum of the two nodes' sums."""
+    from test_torch_adasum import CARD_LEN, np_adasum, vec
+    from test_torch_world2 import run_world
+    env = {"LOCAL_WORLD_SIZE": "2"} if n == 4 else {
+        "CUDA_VISIBLE_DEVICES": "0,1,2"}
+    ranks = run_world("_adasum_rank_on_card", tmp_path, size=n,
+                      module="test_torch_adasum", env=env)
+    vecs = [vec(r, n=CARD_LEN) for r in range(n)]
+    want = np_adasum(vecs)
+    for res in ranks:
+        np.testing.assert_allclose(res["flat"], want, rtol=1e-5, atol=1e-6)
+    if n == 4:
+        nodes = np_adasum([vecs[0] + vecs[1], vecs[2] + vecs[3]])
+        for res in ranks:
+            np.testing.assert_allclose(res["two"], nodes, rtol=1e-5,
+                                       atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_adasum_trainer(four_cards, tmp_path):
+    """The full-width trainer over four cards with ``op=Average`` and then
+    ``op=Adasum`` from the same weights, in one world: the Adasum losses
+    fall, every step starts a bucket in the backward pass, and rank 0's
+    profiled Adasum step shows the first NCCL kernel starting before the
+    backward pass's last kernel ended. Both step times are printed."""
+    from test_torch_world2 import run_world
+    ranks = run_world("_adasum_trainer_rank_on_card", tmp_path, size=4,
+                      module="test_torch_adasum")
+    for r, res in enumerate(ranks):
+        losses = res["adasum_losses"]
+        assert np.isfinite(losses).all() and losses[-1] < losses[0], r
+        assert min(res["adasum_in_backward"]) >= 1, r
+        print(f"rank {r}: step Average {float(res['average_step_ms']):.2f} "
+              f"ms, Adasum {float(res['adasum_step_ms']):.2f} ms; Adasum "
+              f"losses {losses.tolist()}; started in backward "
+              f"{res['adasum_in_backward'].tolist()}")
+    print(f"rank 0 Adasum overlap: {ranks[0]['overlap_report']}")
+    assert bool(ranks[0]["overlap"])
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_negotiated_trainer_with_join(four_cards, tmp_path):
+    """Four cards under the KV negotiation service: named allreduces in
+    different orders complete, a shape mismatch raises on all four ranks,
+    and the full-width trainer with uneven data (3, 1, 2 and 0 extra
+    batches) ends in ``join`` and ``broadcast_parameters`` from the last
+    rank to join, after which every rank holds the same parameters. The
+    step time and the negotiation rounds a step are printed."""
+    from test_torch_world2 import run_world
+    ranks = run_world("_service_rank_on_card", tmp_path, size=4,
+                      module="test_torch_negotiation", kv=True)
+    for r, res in enumerate(ranks):
+        for i, nm in enumerate("abc"):
+            np.testing.assert_array_equal(
+                res[f"ooo_{nm}"], np.full(1 << 16, float(6 + 4 * i)))
+        assert str(res["mismatch"]).startswith("HorovodCollectiveError"), r
+        assert np.isfinite(res["losses"]).all(), r
+        assert int(res["last"]) == 0, r
+        np.testing.assert_array_equal(res["checksum"], ranks[0]["checksum"])
+        print(f"rank {r}: step {float(res['step_ms']):.2f} ms under the "
+              f"service, {float(res['rounds_per_step']):.1f} busy rounds a "
+              f"step of {float(res['round_ms']):.2f} ms, "
+              f"{int(res['buckets'])} buckets; losses "
+              f"{res['losses'].tolist()}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn", ["ulysses"])
+def test_cuda_nccl_world4_long_context_twin_negotiated(four_cards, attn,
+                                                       tmp_path):
+    """The long-context twin of :func:`test_cuda_nccl_world4_long_context_
+    twin` under the KV negotiation service: its gradient buckets
+    negotiate and share the world's communicator with the sequence
+    exchanges, which do not (ROADMAP C3's loop runs this one)."""
+    from test_torch_long_context import twin
+    logs = twin(4, ["--model", "full", "--attn", attn, "--seq-len",
+                    "65536", "--batch", "1", "--steps", "3"],
+                trace_dir=tmp_path, kv=True)
+    assert "OK" in logs[0], logs[0]
+    print(logs[0])
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_moe_transformer_negotiated(four_cards, tmp_path):
+    """The four-card MoE TransformerLM of :func:`test_cuda_nccl_world4_moe_
+    transformer_matches_one_card` under the KV negotiation service: its
+    gradient buckets negotiate beside the MoE all-to-alls, which do not;
+    the loss falls on every card and the flash kernels ran 4 times a
+    step (ROADMAP C3)."""
+    from test_torch_moe import CARD_STEPS
+    from test_torch_world2 import run_world
+    ranks = run_world("_moe_full_rank_on_card", tmp_path, size=4,
+                      module="test_torch_moe", kv=True)
+    for res in ranks:
+        losses = res["losses"]
+        assert np.isfinite(losses).all() and losses[-1] < losses[0]
+        assert res["launches"].tolist() == [4 * CARD_STEPS] * 3
+    print(f"four-card MoE under the service: losses "
+          f"{ranks[0]['losses']}; step "
+          f"{1e3 * np.mean(ranks[0]['step_s'][1:]):.1f} ms")
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_moe_twin_negotiated(four_cards, tmp_path):
+    """The MoE twin of :func:`test_cuda_nccl_world4_moe_twin` under the KV
+    negotiation service."""
+    logs = _twin_world4("horovod_tpu_torch.examples.moe",
+                        ["--model", "full", "--steps", "10"], tmp_path,
+                        kv=True)
+    assert "MoE: 4 experts over 4 ranks" in logs[0] and "OK" in logs[0]
+    print(logs[0])

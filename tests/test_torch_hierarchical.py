@@ -350,16 +350,29 @@ def test_default_layout_and_rank_order_match_jax(monkeypatch, hvd):
 
 
 def test_adasum_raises_naming_the_roadmap_item():
+    """Adasum is ported (ROADMAP A9b): over a layout of one rank
+    ``sync_gradients(op=Adasum)`` gives the gradients back unchanged and
+    ``DistributedOptimizer(op=Adasum, mesh_spec=)`` is made; a scale
+    factor beside Adasum raises, as in the reference (``mesh.py:289``,
+    ``optim/__init__.py:208``). The two-level Adasum of a world of four is
+    in ``test_torch_adasum.py``."""
     from horovod_tpu_torch.parallel import mesh as port
     import horovod_tpu_torch as thvd
     lay = port.MeshLayout(dcn=1, ici_dp=1)
     thvd.init(device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="A9b"):
-            port.sync_gradients([torch.ones(2)], lay, op=thvd.Adasum)
-        with pytest.raises(NotImplementedError, match="A9b"):
-            thvd.DistributedOptimizer(
-                torch.optim.SGD([torch.nn.Parameter(torch.ones(2))], lr=1.0),
-                op=thvd.Adasum, mesh_spec=lay)
+        g = torch.tensor([1.5, -2.0])
+        out = port.sync_gradients([g], lay, op=thvd.Adasum)
+        torch.testing.assert_close(out[0], g, rtol=0, atol=0)
+        p = torch.nn.Parameter(torch.ones(2))
+        thvd.DistributedOptimizer(torch.optim.SGD([p], lr=1.0),
+                                  op=thvd.Adasum, mesh_spec=lay)
+        with pytest.raises(ValueError, match="scale-invariant"):
+            port.sync_gradients([g], lay, op=thvd.Adasum,
+                                prescale_factor=2.0)
+        with pytest.raises(ValueError, match="scale-invariant"):
+            thvd.DistributedOptimizer(torch.optim.SGD([p], lr=1.0),
+                                      op=thvd.Adasum, mesh_spec=lay,
+                                      postscale_factor=0.5)
     finally:
         thvd.shutdown()

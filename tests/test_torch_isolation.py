@@ -37,6 +37,47 @@ SLICE7 = ["parallel/moe.py", "parallel/pipeline.py", "parallel/mesh.py",
           "examples/pipeline_train.py"]
 
 
+# The modules of the Adasum and negotiation slice.
+SLICE8 = ["ops/adasum.py", "runner/__init__.py", "runner/http_kv.py",
+          "utils/retry.py", "_native.py", "dynamic.py", "engine_service.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE8)
+def test_slice8_module_is_a_port_file(rel):
+    path = REPO / "horovod_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+
+
+def test_slice8_import_builds_nothing_and_leaves_jax_out(tmp_path):
+    """Importing the negotiation modules neither imports JAX nor builds
+    the engine: ``g++`` runs at the first service, into the port's own
+    ``_build/`` (a library elsewhere is never loaded)."""
+    code = ("import sys, horovod_tpu_torch._native as n; "
+            "n.BUILD_DIR = __import__('pathlib').Path(sys.argv[1]); "
+            "import horovod_tpu_torch.dynamic, "
+            "horovod_tpu_torch.engine_service, "
+            "horovod_tpu_torch.runner.http_kv, horovod_tpu_torch.ops.adasum; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}); built = list(n.BUILD_DIR.glob('*')); "
+            "print(bad, built, n._lib); "
+            "sys.exit(1 if bad or built or n._lib is not None else 0)")
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path / "b")],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_engine_build_without_compiler_raises(monkeypatch, tmp_path):
+    """No fallback: an engine that cannot be compiled raises with the
+    reason."""
+    from horovod_tpu_torch import _native
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-g++"))
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(_native.NativeBuildError, match="no-such-g"):
+        _native.build()
+
+
 @pytest.mark.parametrize("rel", SLICE7)
 def test_slice7_module_is_a_port_file(rel):
     path = REPO / "horovod_tpu_torch" / rel
@@ -70,7 +111,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             "horovod_tpu_torch.parallel.moe, "
             "horovod_tpu_torch.parallel.pipeline, "
             "horovod_tpu_torch.parallel.mesh, "
-            "horovod_tpu_torch.ops.hierarchical; "
+            "horovod_tpu_torch.ops.hierarchical, "
+            "horovod_tpu_torch.ops.adasum, horovod_tpu_torch.dynamic, "
+            "horovod_tpu_torch.engine_service, "
+            "horovod_tpu_torch.runner.http_kv; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

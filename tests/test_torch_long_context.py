@@ -355,13 +355,14 @@ def test_cpu_ring_launches_no_kernel():
 # --------------------------------------------------------------------------
 
 
-def twin(size: int, argv: list, trace_dir=None) -> list:
+def twin(size: int, argv: list, trace_dir=None, kv: bool = False) -> list:
     """``python -m horovod_tpu_torch.examples.long_context_lm *argv`` in
     each rank of a world of ``size``; the outputs. ``trace_dir`` takes
-    NCCL's flight-recorder dumps if a collective times out."""
+    NCCL's flight-recorder dumps if a collective times out; ``kv`` runs
+    the world under the negotiation service (``spawn_world``)."""
     return spawn_world(lambda rank: [
         sys.executable, "-m", "horovod_tpu_torch.examples.long_context_lm",
-        *argv], size, trace_dir=trace_dir)
+        *argv], size, trace_dir=trace_dir, kv=kv)
 
 
 @pytest.mark.parametrize("attn", ["ring", "ring_zigzag", "ulysses"])

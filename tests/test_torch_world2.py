@@ -390,7 +390,7 @@ def _flight_records(trace_dir: Path) -> str:
 
 
 def spawn_world(argv_of, size: int, env: dict | None = None,
-                trace_dir: Path | None = None) -> list:
+                trace_dir: Path | None = None, kv: bool = False) -> list:
     """Run the command ``argv_of(rank)`` in each rank of one world of
     ``size`` processes, with the environment a launcher sets (a free local
     port, ``LOCAL_RANK`` = rank; ``env`` adds to it, e.g. a
@@ -400,8 +400,19 @@ def spawn_world(argv_of, size: int, env: dict | None = None,
     recorder into ``trace_dir`` (default: a directory of its own), which a
     failure prints. A rank still running after ``TIMEOUT_S`` is aborted,
     and the failure shows where every thread of it was
-    (``PYTHONFAULTHANDLER``)."""
+    (``PYTHONFAULTHANDLER``). With ``kv`` a KV server of the port runs in
+    this process for the world's negotiation service, on a port the OS
+    picks, and every rank gets ``HVD_KV_ADDR``, ``HVD_KV_PORT`` and
+    ``HVD_SECRET_KEY``, as a launcher sets them."""
     port = _free_port()
+    server = None
+    kv_env = {}
+    if kv:
+        from horovod_tpu_torch.runner.http_kv import KVServer, make_secret
+        server = KVServer(secret=make_secret(), host="127.0.0.1")
+        kv_env = {"HVD_KV_ADDR": "127.0.0.1",
+                  "HVD_KV_PORT": str(server.start()),
+                  "HVD_SECRET_KEY": server.secret}
     own_dir = trace_dir is None
     if own_dir:
         trace_dir = Path(tempfile.mkdtemp(prefix="nccl_trace_"))
@@ -425,6 +436,7 @@ def spawn_world(argv_of, size: int, env: dict | None = None,
                         PYTHONPATH=os.pathsep.join(
                             [str(REPO), str(REPO / "tests"),
                              os.environ.get("PYTHONPATH", "")]))
+        rank_env.update(kv_env)
         rank_env.update(env or {})
         procs.append(subprocess.Popen(
             argv_of(rank), env=rank_env, cwd=REPO, stdout=subprocess.PIPE,
@@ -445,6 +457,8 @@ def spawn_world(argv_of, size: int, env: dict | None = None,
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        if server is not None:
+            server.stop()
     failed = hung or any(p.returncode != 0 for p in procs)
     records = _flight_records(trace_dir) if failed else ""
     if own_dir:
@@ -460,15 +474,16 @@ def spawn_world(argv_of, size: int, env: dict | None = None,
 
 def run_world(rank_main: str, tmp: Path, size: int = 2,
               module: str = "test_torch_world2",
-              env: dict | None = None) -> list:
+              env: dict | None = None, kv: bool = False) -> list:
     """Run ``rank_main(out_path)``, a function of the JAX-free test module
     ``module``, in each rank of one world of ``size`` processes (gloo, or
     NCCL where ``rank_main`` starts one), with ``env`` added to each rank's
-    environment; returns each rank's saved arrays."""
+    environment and, with ``kv``, a KV server for the negotiation service
+    (:func:`spawn_world`); returns each rank's saved arrays."""
     code = f"import sys, {module} as w; w.{rank_main}(sys.argv[1])"
     spawn_world(lambda rank: [sys.executable, "-c", code,
                               str(tmp / f"rank{rank}.npz")], size, env=env,
-                trace_dir=tmp / "nccl_trace")
+                trace_dir=tmp / "nccl_trace", kv=kv)
     return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(size)]
 
 
