@@ -65,6 +65,19 @@ Phases, each of which exits non-zero on failure:
    rounded to bf16, within ``ADASUM_AGREEMENT`` of its float64 version, and
    timed; the native negotiation engine built with ``g++`` and one
    in-process cycle of two engines, and one KV round's time;
+7c. negotiation: the trainer again, with ``HVD_TIMELINE`` set at
+   ``init()`` (the file must hold the parameters' broadcast), then STEPS
+   steps in each of four turns, the timeline off, on, on and off: every on
+   turn's file must parse as Chrome-trace JSON and hold a range for every
+   gradient bucket of every step, and each turn's step time is printed
+   (the timeline's cost); every kernel ``num_layers x STEPS x 4`` launches.
+   Then two ``DynamicService``s in this process over a ``KVServer`` on this
+   host, with ``HVD_RESPONSE_CACHE=1``, flat and then two-level with leader
+   groups of one: one named allreduce request ``NEG_CALLS`` times; once
+   the cache confirms it, every call must be served with no busy round
+   (the rounds a call before and after, the hits and misses, a round's
+   time); ``metrics_dump()`` must hold every busy round in its round
+   histogram;
 8. pipeline: the pipeline twin (``examples/pipeline_train.py --model
    full``: vocab 32000, d_model 512, hidden 2048, 4 residual-MLP blocks, 8
    x 2048 tokens, bf16) at pp 1 with 4 microbatches for 5 steps: the loss
@@ -111,7 +124,8 @@ object (each run's step time, tokens/s, peak memory, losses and buckets,
 with the per-step count of buckets started during the backward pass), a
 ``{"moe": ..., "pipeline": ...}`` one, one ``{"kernels": [...]}`` JSON
 object (each kernel's launches on the trainer's, the k=2 run's, the
-Adasum run's and the MoE run's main path), preceded by ``{"adasum": ...}``,
+Adasum run's, the negotiation phase's and the MoE run's main path),
+preceded by ``{"adasum": ...}`` and ``{"negotiation": ...}``,
 the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -1043,6 +1057,228 @@ def phase_adasum(dev) -> tuple[dict, dict]:
             "kv_round_ms": kv_ms}, launches
 
 
+NEG_CALLS = 20  # repetitions of the named request in the negotiation phase
+
+
+def _bucket_ranges(path: str) -> list[int]:
+    """The gradient buckets' ranges a step in a timeline file: the
+    ``GROUPED_ALLREDUCE`` and ``ALLREDUCE`` begins after each ``STEP``
+    instant. The file must be Chrome-trace JSON."""
+    with open(path) as f:
+        events = json.load(f)
+    per_step: list[int] = []
+    for e in events:
+        if e.get("name") == "STEP" and e.get("ph") == "i":
+            per_step.append(0)
+        elif (per_step and e.get("ph") == "B"
+              and e.get("name") in ("ALLREDUCE", "GROUPED_ALLREDUCE")):
+            per_step[-1] += 1
+    return per_step
+
+
+def _cached_calls(transport_cls, **kw) -> dict:
+    """Two ``DynamicService``s in this process over a ``KVServer`` on this
+    host (``HVD_RESPONSE_CACHE=1``), one member each, negotiating the same
+    named allreduce request ``NEG_CALLS`` times: each call's busy rounds,
+    whether it was served, and its time; the cache's hits and misses; the
+    mean busy round."""
+    import threading
+    from horovod_tpu_torch import dynamic, engine_service
+    from horovod_tpu_torch.runner.http_kv import (KVClient, KVServer,
+                                                  make_secret)
+    server = KVServer(secret=make_secret(), host="127.0.0.1")
+    port = server.start()
+    svcs = []
+    req = dict(name="loss", request_type=dynamic.REQ_ALLREDUCE,
+               shape=(1 << 16,), dtype=11, element_size=4)
+    try:
+        for r in range(2):
+            svcs.append(engine_service.DynamicService(
+                dynamic.NativeEngine(world_size=2, rank=r),
+                transport_cls(KVClient("127.0.0.1", port,
+                                       secret=server.secret), 2, r,
+                              prefix="smoke", **kw)))
+        rounds, served, call_ms, errors = [], [], [], []
+        for _ in range(NEG_CALLS):
+            before = svcs[0].rounds
+            got = [None, None]
+
+            def call(i):
+                try:
+                    t = svcs[i].negotiate_many_submit([dict(req)])
+                    got[i] = (t.served, svcs[i].negotiate_many_wait(
+                        t, timeout=60.0)[0].tensor_names)
+                except Exception as e:  # re-raised below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=call, args=(i,))
+                       for i in range(2)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+            if errors:
+                raise errors[0]
+            require(all(g is not None and g[1] == ["loss"] for g in got),
+                    f"{transport_cls.__name__}: a call got {got}")
+            require(got[0][0] == got[1][0],
+                    "the two members decided differently to serve")
+            served.append(got[0][0])
+            rounds.append(svcs[0].rounds - before)
+        stats = [s.response_cache_stats() for s in svcs]
+        busy = sum(s.rounds for s in svcs)
+        round_ms = sum(s.round_seconds for s in svcs) / max(busy, 1) * 1e3
+    finally:
+        for s in svcs:
+            s.stop()
+        server.stop()
+    first = served.index(True) if True in served else NEG_CALLS
+    return {"transport": transport_cls.__name__, "kw": kw,
+            "rounds": rounds, "served": served, "call_ms": call_ms,
+            "rounds_per_call_before": sum(rounds[:first]) / max(first, 1),
+            "rounds_per_call_after": (sum(rounds[first:])
+                                      / max(NEG_CALLS - first, 1)),
+            "hits": stats[0]["hits"], "misses": stats[0]["misses"],
+            "stats": stats, "busy_rounds": busy, "round_ms": round_ms}
+
+
+def phase_negotiation(dev) -> tuple[dict, dict]:
+    """(a) The trainer at full width (8 x 2048 tokens, K1-K3) with
+    ``HVD_TIMELINE`` set at ``init()``: the file holds the parameters'
+    broadcast; then STEPS steps in each of four turns, timeline off, on,
+    on, off, in this process; each on turn's file must parse as Chrome
+    trace JSON and hold every gradient bucket of every step. (b) Two
+    in-process services over the port's ``KVServer`` on this host, flat
+    and then two-level with groups of one: a named allreduce request
+    ``NEG_CALLS`` times, served from the ResponseCache once confirmed,
+    when it must take no round. (c) ``metrics_dump()`` holds the round
+    histograms of every busy round."""
+    import tempfile
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics, timeline
+    from horovod_tpu_torch.engine_service import KVTransport
+    from horovod_tpu_torch.models import TransformerConfig, TransformerLM
+    from horovod_tpu_torch.negotiation import HierarchicalTransport
+    from horovod_tpu_torch.ops import flash
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["HVD_TIMELINE"] = os.path.join(tmp, "init.json")
+        try:
+            hvd.init()
+        finally:
+            del os.environ["HVD_TIMELINE"]
+        require(timeline.timeline_active(),
+                "HVD_TIMELINE did not start the timeline at init()")
+        cfg = TransformerConfig(attn_mode="ulysses")  # full-width defaults
+        model = TransformerLM(cfg, device=dev)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        timeline.stop_timeline()
+        with open(os.path.join(tmp, "init.json")) as f:
+            init_events = json.load(f)
+        require(any(e.get("name") in ("BROADCAST", "GROUPED_BROADCAST")
+                    for e in init_events),
+                "the init timeline holds no broadcast of the parameters")
+        opt = hvd.DistributedOptimizer(
+            torch.optim.Adam(model.parameters(), lr=1e-3))
+        tokens = torch.from_numpy(
+            synthetic_tokens(BATCH, SEQ, cfg.vocab_size, 0)).to(dev)
+        turns, losses = [], []
+        flash.reset_launch_counts()
+        for i, on in enumerate((False, True, True, False)):
+            path = os.path.join(tmp, f"turn{i}.json")
+            if on:
+                timeline.start_timeline(path)
+            step_s = []
+            for _ in range(STEPS):
+                if on:
+                    timeline.record("step", "STEP", timeline.PHASE_INSTANT)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(_train_step(model, opt, tokens))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            turn = {"timeline": on, "step_s": step_s,
+                    "step_ms": sum(step_s[1:]) / (STEPS - 1) * 1e3}
+            if on:
+                timeline.stop_timeline()
+                turn["file_bytes"] = os.path.getsize(path)
+                turn["buckets_per_step"] = _bucket_ranges(path)
+            turns.append(turn)
+        launches = dict(flash.launches)
+        n_buckets = len(opt.stats["bucket_bytes"])
+        del model, opt
+        hvd.shutdown()
+    torch.cuda.empty_cache()
+    off = [t["step_ms"] for t in turns if not t["timeline"]]
+    on_ms = [t["step_ms"] for t in turns if t["timeline"]]
+    cost = sum(on_ms) / len(on_ms) - sum(off) / len(off)
+    print(f"[negotiation] trainer with the timeline off/on/on/off: step "
+          f"{['%.2f' % t['step_ms'] for t in turns]} ms (mean of steps 2-"
+          f"{STEPS} a turn); timeline cost {cost:+.3f} ms a step; bucket "
+          f"ranges a step in the on turns "
+          f"{[t['buckets_per_step'] for t in turns if t['timeline']]} "
+          f"({n_buckets} buckets); losses "
+          f"{['%.4f' % x for x in losses[::STEPS]]}...; launches {launches}")
+    require(all(math.isfinite(x) for x in losses), "loss is not finite")
+    require(losses[-1] < losses[0], "loss did not fall")
+    for t in turns:
+        if t["timeline"]:
+            require(t["buckets_per_step"] == [n_buckets] * STEPS,
+                    f"timeline misses a bucket: {t['buckets_per_step']}, "
+                    f"want {n_buckets} in each of {STEPS} steps")
+    want = cfg.num_layers * STEPS * len(turns)
+    require(all(v == want for v in launches.values()),
+            f"negotiation phase's launch counts {launches}, want {want}")
+    out["timeline"] = {"turns": turns, "cost_ms": cost,
+                       "buckets": n_buckets}
+    os.environ["HVD_RESPONSE_CACHE"] = "1"
+    before = metrics.snapshot()
+    try:
+        runs = [_cached_calls(KVTransport),
+                _cached_calls(HierarchicalTransport, group_size=1)]
+    finally:
+        del os.environ["HVD_RESPONSE_CACHE"]
+    grown = metrics.delta(metrics.snapshot(), before)
+    for run in runs:
+        print(f"[negotiation] two services, {run['transport']} "
+              f"{run['kw']}: {NEG_CALLS} calls of one named allreduce "
+              f"request; busy rounds a call {run['rounds']}, served "
+              f"{sum(run['served'])}; rounds a call before confirmation "
+              f"{run['rounds_per_call_before']:.2f}, after "
+              f"{run['rounds_per_call_after']:.2f}; hits {run['hits']}, "
+              f"misses {run['misses']}; a busy round "
+              f"{run['round_ms']:.3f} ms; a call "
+              f"{['%.2f' % x for x in run['call_ms']]} ms")
+        first = run["served"].index(True) if True in run["served"] else -1
+        require(first >= 1 and all(run["served"][first:]),
+                f"{run['transport']}: the request was never served, or "
+                "stopped being served")
+        require(run["rounds_per_call_after"] == 0.0,
+                f"{run['transport']}: a served call took a round")
+        require(run["rounds_per_call_before"] >= 1.0,
+                f"{run['transport']}: a negotiated call took no round")
+        require(run["hits"] == NEG_CALLS - first and run["misses"] == first,
+                f"{run['transport']}: hits and misses {run['hits']}, "
+                f"{run['misses']}")
+    hist = metrics.metrics_dump()["hvd_negotiation_round_seconds"]
+    counted = sum(v for (name, _), v in grown.items()
+                  if name == "hvd_negotiation_round_seconds_count")
+    busy = sum(run["busy_rounds"] for run in runs)
+    series = [(x["labels"], x["count"], round(x["sum"], 6))
+              for x in hist["series"]]
+    print(f"[negotiation] metrics_dump(): hvd_negotiation_round_seconds "
+          f"{series}; {counted} rounds observed in this phase, {busy} busy "
+          "rounds counted by the services")
+    require(counted == busy and busy > 0,
+            "the round histogram does not hold every busy round")
+    out.update({"flat": runs[0], "hierarchical": runs[1],
+                "round_histogram": hist["series"]})
+    return out, launches
+
+
 def phase_moe(dev):
     """The MoE TransformerLM at full width with one expert at NCCL world 1:
     ``TransformerConfig(attn_mode="ulysses", moe_experts=1)``, bf16, 8 x
@@ -1669,6 +1905,7 @@ def main(argv) -> int:
     timed("reference", phase_reference, dev)
     launches, k2_launches, trainer = timed("trainer", phase_trainer, dev)
     ada, ada_launches = timed("adasum", phase_adasum, dev)
+    neg, neg_launches = timed("negotiation", phase_negotiation, dev)
     moe, moe_launches = timed("moe", phase_moe, dev)
     pipeline = timed("pipeline", phase_pipeline, dev)
     long_ctx = timed("long context", phase_long_context)
@@ -1681,6 +1918,7 @@ def main(argv) -> int:
         row["launches_k2_sparse"] = k2_launches[name]
         row["launches_moe"] = moe_launches[name]
         row["launches_adasum"] = ada_launches[name]
+        row["launches_negotiation"] = neg_launches[name]
         row["launches_long_context"] = {
             mode: res["launches_per_step"][-1][name]
             for mode, res in long_ctx.items()}
@@ -1699,6 +1937,7 @@ def main(argv) -> int:
     print(json.dumps({"trainer": trainer}))
     print(json.dumps({"moe": moe, "pipeline": pipeline}))
     print(json.dumps({"adasum": ada}))
+    print(json.dumps({"negotiation": neg}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

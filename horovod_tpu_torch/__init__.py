@@ -15,7 +15,13 @@ Module layout mirrors the JAX package: ``horovod_tpu/X.py`` maps to
 
 from . import callbacks, data, exceptions
 from .callbacks import average_metrics, metric_average
-from .exceptions import HorovodInternalError, HostsUpdatedInterrupt
+from .conformance import conformance_dump, conformance_stats
+from .engine_service import response_cache_stats
+from .exceptions import (HorovodInternalError, HostsUpdatedInterrupt,
+                         PeerFailureError, ResponseCacheJoinError)
+from .health import health_stats
+from .metrics import metrics_dump
+from .timeline import start_timeline, stop_timeline
 from .ops.adasum import adasum_allreduce
 from .functions import broadcast_optimizer_state, broadcast_parameters
 from .ops.collectives import (Handle, allgather, allgather_async,
@@ -44,20 +50,23 @@ from .runtime import (NotInitializedError, cross_rank, cross_size, cuda_built,
 __all__ = [
     "Adasum", "Average", "Compression", "Compressor", "DistributedOptimizer",
     "Handle", "HorovodInternalError", "HostsUpdatedInterrupt", "Max", "Min",
-    "NotInitializedError", "ProcessSet", "Product", "ReduceOp", "SparseRows",
+    "NotInitializedError", "PeerFailureError", "ProcessSet", "Product",
+    "ReduceOp", "ResponseCacheJoinError", "SparseRows",
     "Sum", "SyncBatchNorm", "adasum_allreduce", "add_process_set",
     "allgather", "allgather_async",
     "allgather_object", "allreduce", "allreduce_async", "alltoall",
     "average_metrics", "barrier", "broadcast", "broadcast_async",
     "broadcast_object", "broadcast_optimizer_state", "broadcast_parameters",
-    "callbacks", "cross_rank", "cross_size", "cuda_built", "data", "device",
+    "callbacks", "conformance_dump", "conformance_stats", "cross_rank",
+    "cross_size", "cuda_built", "data", "device",
     "exceptions", "global_process_set", "grad", "grouped_allreduce",
     "grouped_allreduce_async", "grouped_broadcast", "grouped_broadcast_async",
-    "hierarchical_allgather", "hierarchical_allreduce", "init",
-    "is_homogeneous", "is_initialized", "join", "local_rank", "local_size",
-    "mesh_layout", "metric_average", "nccl_built", "poll", "rank",
-    "reducescatter",
-    "remove_process_set", "shutdown", "size", "sparse_allreduce",
-    "sparse_allreduce_async", "sparse_allreduce_to_dense", "synchronize",
-    "tpu_built", "value_and_grad", "xla_built",
+    "health_stats", "hierarchical_allgather", "hierarchical_allreduce",
+    "init", "is_homogeneous", "is_initialized", "join", "local_rank",
+    "local_size", "mesh_layout", "metric_average", "metrics_dump",
+    "nccl_built", "poll", "rank", "reducescatter",
+    "remove_process_set", "response_cache_stats", "shutdown", "size",
+    "sparse_allreduce", "sparse_allreduce_async",
+    "sparse_allreduce_to_dense", "start_timeline", "stop_timeline",
+    "synchronize", "tpu_built", "value_and_grad", "xla_built",
 ]

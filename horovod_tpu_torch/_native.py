@@ -23,7 +23,12 @@ NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("engine.cc", "timeline.cc")
 HEADERS = ("hvd_core.h", "message.h", "wire.h", "timeline.h")
-FLAGS = ("-O2", "-fPIC", "-std=c++17", "-pthread", "-shared")
+# The engine carries its own libstdc++ (linked statically, its symbols kept
+# local): inside a process that has loaded torch, an engine that g++ 13.3
+# (Ubuntu 24.04) linked to the shared libstdc++ crashed joining the
+# timeline's writer thread.
+FLAGS = ("-O2", "-fPIC", "-std=c++17", "-pthread", "-shared",
+         "-static-libstdc++", "-static-libgcc", "-Wl,--exclude-libs,ALL")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -103,6 +108,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.hvd_engine_cache_has.restype = c.c_int32
     lib.hvd_engine_cache_has.argtypes = [c.c_void_p, c.c_char_p]
     lib.hvd_core_version.restype = c.c_char_p
+    # the Chrome-trace writer of native/timeline.cc (hvd_core.h:142-150)
+    lib.hvd_timeline_start.restype = c.c_int32
+    lib.hvd_timeline_start.argtypes = [c.c_void_p, c.c_char_p]
+    lib.hvd_timeline_stop.restype = None
+    lib.hvd_timeline_stop.argtypes = [c.c_void_p]
+    lib.hvd_timeline_record.restype = None
+    lib.hvd_timeline_record.argtypes = [c.c_void_p, c.c_char_p, c.c_char_p,
+                                        c.c_int32, c.c_int64]
 
 
 def load() -> ctypes.CDLL:

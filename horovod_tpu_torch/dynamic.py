@@ -356,6 +356,24 @@ class NativeEngine:
         completed by every rank joining)."""
         return self._lib.hvd_engine_join_pending(self._h) == 1
 
+    # -- timeline ----------------------------------------------------------
+
+    def timeline_start(self, path: str) -> None:
+        """Open ``path`` and start this engine's Chrome-trace writer."""
+        if self._lib.hvd_timeline_start(self._h, path.encode()) != 0:
+            raise OSError(f"cannot open timeline file {path!r}")
+
+    def timeline_stop(self) -> None:
+        """Flush and close the trace (idempotent)."""
+        self._lib.hvd_timeline_stop(self._h)
+
+    def timeline_record(self, tensor: str, activity: str, phase: int,
+                        timestamp_us: int = -1) -> None:
+        """Queue one record (phase 0 begin, 1 end, 2 instant) for the
+        writer; ``timestamp_us < 0`` stamps it with the engine's clock."""
+        self._lib.hvd_timeline_record(self._h, tensor.encode(),
+                                      activity.encode(), phase, timestamp_us)
+
 
 def drive_cycle(engines: list[NativeEngine]) -> list[list[Response]]:
     """Run one full symmetric negotiation cycle across in-memory engines.

@@ -25,6 +25,31 @@ the thread that asks for it, in the agreed order (:meth:`DynamicService.
 run_until`): a collective whose plan has arrived is issued once every
 collective whose plan arrived before it has been.
 
+**The coordinator ResponseCache** (``negotiation/response_cache.py``,
+``HVD_RESPONSE_CACHE``) answers a steady-state request with no round once
+a real round has proven that every rank holds its response. A served
+collective has no plan, so it has no place in the delivery order; its
+place is this rank's **submission order**: it is issued after every
+collective submitted before it on this rank, and before every collective
+submitted after it. Between two served collectives, the negotiated ones
+keep the delivery order. Every rank computes the same places, because a
+cache entry is confirmed on every rank at the same negotiation index
+(the AND-ed cache bits), so a name is served from the same occurrence on
+every rank, and steady-state traffic that is served is submitted in
+program order (docs/negotiation.md:99-125). Taking the delivery counter
+at submission instead would let two ranks put a served collective on
+either side of a plan that arrives meanwhile: two issue orders on one
+communicator, a hang or a wrong pairing.
+
+Past one leader group (``HVD_NEGOTIATION_GROUP_SIZE``, 8) a round runs
+member -> leader -> cross-leader -> fan-down (``negotiation/
+hierarchy.py``). A health watchdog (``health.py``) beats over the same KV
+store: a dead peer fails every waiter with :class:`PeerFailureError`
+within ``HVD_HEALTH_TIMEOUT`` seconds instead of the 600 s exchange
+deadline. Rounds feed the metrics registry and the straggler tracker,
+requests draw ``NEGOTIATE`` ranges on the timeline, and the service's
+lifecycle, join and cache decisions go to the conformance recorder.
+
 The service starts where a launcher's KV store is set (``HVD_KV_ADDR``,
 ``HVD_KV_PORT``, ``HVD_SECRET_KEY``) in a world of more than one rank, one
 service per process set over its members; ``HVD_DYNAMIC_ENGINE=0`` turns it
@@ -41,13 +66,20 @@ import time
 
 import torch
 
+from . import conformance as _conformance
+from . import health as _health
+from . import metrics as _metrics
 from . import runtime
+from . import timeline as _timeline
 from .dynamic import (REQ_ALLTOALL, REQ_BROADCAST, REQ_JOIN,
                       REQ_REDUCESCATTER, RESP_ERROR, DuplicateNameError,
                       HorovodCollectiveError, NativeEngine, Response,
-                      and_bitvectors)
-from .exceptions import PeerFailureError
+                      and_bitvectors, parse_requests)
+from .exceptions import PeerFailureError, ResponseCacheJoinError
+from .negotiation import response_cache as _rcache
+from .negotiation.hierarchy import HierarchicalTransport
 from .utils import envs
+from .utils import faults as _faults
 from .utils import logging as hvd_logging
 
 # The idle cycle over the HTTP KV transport: a KV round costs milliseconds,
@@ -74,17 +106,22 @@ class KVTransport:
         self.rank = rank
         self.prefix = prefix
         self.last_round_s = 0.0  # the last exchange, publish to gathered
+        # each member's lag behind the round's first submitter, on the KV
+        # server's clock (skew between hosts cannot fake a straggler)
+        self.last_lags: dict[int, float] = {}
 
     def exchange(self, cycle: int, req_bytes: bytes, bits: bytes,
                  timeout: float) -> tuple[list[bytes], list[bytes]]:
         """One round: publish (requests, bits), collect everyone's. A
         member silent for ``timeout`` raises :class:`PeerFailureError`."""
+        _faults.inject("svc.exchange")
         t0 = time.monotonic()
         frame = struct.pack("<I", len(req_bytes)) + req_bytes + bits
         scope = f"{self.prefix}/x/{cycle}"
         self.kv.put(f"{scope}/{self.rank}", frame)
         try:
-            got = self.kv.gather(scope, self.world_size, timeout=timeout)
+            got, times = self.kv.gather(scope, self.world_size,
+                                        timeout=timeout, with_times=True)
         except TimeoutError as e:
             seen = {int(k.rsplit("/", 1)[1]) for k in self.kv.keys(scope)}
             missing = [r for r in range(self.world_size) if r not in seen]
@@ -98,6 +135,9 @@ class KVTransport:
             (ln,) = struct.unpack_from("<I", v, 0)
             datas[r] = v[4:4 + ln]
             bitvs[r] = v[4 + ln:]
+        receipt = {int(k.rsplit("/", 1)[1]): t for k, t in times.items()}
+        first = min(receipt.values()) if receipt else 0.0
+        self.last_lags = {r: t - first for r, t in sorted(receipt.items())}
         # every member read cycle c before any can write cycle c + 2, so
         # our cycle c - 1 key is no longer read
         if cycle > 0:
@@ -117,14 +157,17 @@ class _Pending:
 class NegotiationTicket:
     """An in-flight :meth:`DynamicService.negotiate_many_submit`, consumed
     by exactly one of ``negotiate_many_wait`` and
-    ``negotiate_many_cancel``."""
+    ``negotiate_many_cancel``. ``served``: the coordinator ResponseCache
+    answered the whole batch at submission; no round is in flight and
+    its names were never registered."""
 
-    __slots__ = ("requests", "pends", "submitted_at")
+    __slots__ = ("requests", "pends", "submitted_at", "served")
 
-    def __init__(self, requests, pends):
+    def __init__(self, requests, pends, served: bool = False):
         self.requests = requests
         self.pends = pends
         self.submitted_at = time.monotonic()
+        self.served = served
 
     def ready(self) -> bool:
         return all(p.event.is_set() for p in self.pends)
@@ -145,19 +188,41 @@ class Queued:
 
 
 class DynamicService:
-    """One engine and transport, cycled on a background thread."""
+    """One engine and transport, cycled on a background thread.
+    ``global_ranks`` maps the transport's member indices to global ranks
+    (default: the identity); ``pset_key`` labels the service's metrics and
+    conformance events."""
 
-    def __init__(self, engine: NativeEngine, transport, device=None):
+    def __init__(self, engine: NativeEngine, transport, device=None,
+                 global_ranks=None, pset_key: str = "global"):
         self.engine = engine
         self.transport = transport
+        self.pset_key = pset_key
         world = getattr(transport, "world_size", 1)
+        _conformance.record(
+            "engine_service.py::DynamicService.__init__", "svc_start",
+            (pset_key, world, getattr(transport, "rank", 0)))
         # idle cadence scales with the world: every member exchanges every
         # tick, so a large world would flood the one KV server
         self._idle_cycle_default_ms = (
             DEFAULT_KV_CYCLE_TIME_MS * max(1.0, world / 16.0))
         self.rounds = 0  # busy rounds, and their summed seconds
         self.round_seconds = 0.0
+        self.step_negotiations = 0  # negotiate_step calls
         self._device = device
+        # the coordinator ResponseCache: on by default past one leader
+        # group (HVD_RESPONSE_CACHE); an override epoch move flips, resizes
+        # or empties it (_rc_refresh_epoch)
+        cap = envs.response_cache_capacity(world)
+        self._rcache = (_rcache.ResponseCache(cap, pset_key)
+                        if cap > 0 else None)
+        self._rc_epoch = envs.override_epoch()
+        # batches served since the last cycle: the window in which a serve
+        # can race a peer's JOIN (_check_join_race)
+        self._rc_serves_window = 0
+        # set once a JOIN is seen: a joined rank learns of the collectives
+        # it owes zeros to from real rounds only, so serving ends for good
+        self._rc_join_latch = False
         self._cycle = 0
         self._delivered = 0  # plans delivered: the agreed order
         self._mu = threading.Lock()
@@ -170,6 +235,21 @@ class DynamicService:
         self._shutdown = threading.Event()
         self._tick = threading.Event()  # fresh work: skip the cycle sleep
         self._last_stall_check = time.monotonic()
+        # liveness over the transport's KV store: a dead peer fails every
+        # waiter within HVD_HEALTH_TIMEOUT (in-memory transports have none)
+        self._watchdog: _health.HealthWatchdog | None = None
+        kv = getattr(transport, "kv", None)
+        if kv is not None and _health.enabled() and world > 1:
+            self._watchdog = _health.HealthWatchdog(
+                kv, world, transport.rank,
+                prefix=f"{getattr(transport, 'prefix', 'engine')}/health",
+                on_failure=self._on_peer_failure, global_ranks=global_ranks,
+                layout=getattr(transport, "group_layout", None))
+            self._watchdog.start()
+        self._straggler = _health.StragglerTracker(
+            getattr(transport, "rank", 0),
+            (list(global_ranks) if global_ranks is not None
+             else list(range(world))))
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="hvd-engine-cycle")
         self._thread.start()
@@ -188,8 +268,11 @@ class DynamicService:
         stops contributing data; until every rank has joined, the cycle
         thread runs the collectives the others schedule with zero inputs.
         Returns the last rank to join. Blocks without a deadline by
-        default, as the reference does."""
+        default, as the reference does. Ends local serving for good."""
         self._joined = True
+        self._rc_join_latch = True
+        _conformance.record("engine_service.py::DynamicService.join",
+                            "join", (self.pset_key, name))
         try:
             resp = self.negotiate(name, REQ_JOIN, timeout=float("inf")
                                   if timeout is None else timeout)
@@ -203,9 +286,22 @@ class DynamicService:
         return self.negotiate_many_wait(self.negotiate_many_submit(requests),
                                         timeout=timeout)
 
+    def negotiate_step(self, requests: list[dict],
+                       timeout: float | None = None) -> list[Response]:
+        """One round for a whole step's requests (reference
+        ``negotiate_step``): submitted together at one point of the
+        program, they land in one cycle."""
+        self.step_negotiations += 1
+        return self.negotiate_many(requests, timeout=timeout)
+
     def negotiate_many_submit(self, requests: list[dict]) -> NegotiationTicket:
         """Register and enqueue a batch, waking the cycle loop, without
-        waiting: no HTTP round is made in the caller's thread."""
+        waiting: no HTTP round is made in the caller's thread. A batch the
+        ResponseCache answers whole comes back served."""
+        _faults.inject("svc.submit")
+        served = self._try_serve_cached(requests)
+        if served is not None:
+            return served
         pends = []
         with self._mu:
             if self._failure:
@@ -233,12 +329,16 @@ class DynamicService:
                         self.engine.abandon(done["name"])
                     raise
         self._tick.set()
+        for req in requests:
+            _timeline.record(req["name"], _timeline.NEGOTIATE,
+                             _timeline.PHASE_BEGIN)
         return NegotiationTicket(requests, pends)
 
     def negotiate_many_wait(self, ticket: NegotiationTicket,
                             timeout: float | None = None) -> list[Response]:
         """Block until every plan of the ticket has arrived (the timeout
-        counts from submission); raise on an error plan."""
+        counts from submission); raise on an error plan. The responses of
+        a real round feed the ResponseCache."""
         requests, pends = ticket.requests, ticket.pends
         deadline = timeout if timeout is not None else EXCHANGE_TIMEOUT_S
         end = ticket.submitted_at + deadline
@@ -257,18 +357,29 @@ class DynamicService:
                     undelivered = sorted(r["name"] for r, p in
                                          zip(requests, pends)
                                          if p.response is None)
+                    liveness = (self._watchdog.describe_peers()
+                                if self._watchdog is not None
+                                else "health watchdog off")
                     raise HorovodCollectiveError(
                         f"negotiation of {req['name']!r} timed out after "
                         f"{deadline}s (some processes never submitted it). "
-                        f"Undelivered tensors: {undelivered}")
+                        f"Undelivered tensors: {undelivered}; peer "
+                        f"liveness: {liveness}")
         finally:
-            with self._mu:
-                for req, pend in zip(requests, pends):
-                    self._pending.pop(req["name"], None)
-                    # a timed-out name is dropped from the engine too, so
-                    # that it can be submitted again
-                    if timed_out and pend.response is None:
-                        self.engine.abandon(req["name"])
+            if not ticket.served:
+                # a served ticket registered nothing: popping its names
+                # would orphan a real negotiation of the same name
+                with self._mu:
+                    for req, pend in zip(requests, pends):
+                        self._pending.pop(req["name"], None)
+                        if pend.response is None:
+                            _timeline.record(req["name"],
+                                             _timeline.NEGOTIATE,
+                                             _timeline.PHASE_END)
+                            # a timed-out name leaves the engine too, so
+                            # that it can be submitted again
+                            if timed_out:
+                                self.engine.abandon(req["name"])
         out = []
         for req, pend in zip(requests, pends):
             resp = pend.response
@@ -279,16 +390,24 @@ class DynamicService:
                     f"negotiation of {req['name']!r} aborted")
             if resp.is_error:
                 raise HorovodCollectiveError(resp.error_message)
+            if self._rcache is not None and not ticket.served:
+                # fed by real rounds only: a from_cache response confirms
+                # the entry on every rank at this same occurrence
+                self._rcache.note_response(req, resp)
             out.append(resp)
         return out
 
     def negotiate_many_cancel(self, ticket: NegotiationTicket) -> None:
         """Release a ticket that will not be waited for: its names leave
         the pending table and the engine, so they can be used again."""
+        if ticket.served:
+            return  # nothing registered, nothing in the engine
         with self._mu:
             for req, pend in zip(ticket.requests, ticket.pends):
                 self._pending.pop(req["name"], None)
                 if pend.response is None:
+                    _timeline.record(req["name"], _timeline.NEGOTIATE,
+                                     _timeline.PHASE_END)
                     self.engine.abandon(req["name"])
 
     def submit(self, requests: list[dict], issue) -> Queued:
@@ -301,30 +420,55 @@ class DynamicService:
 
     def run_until(self, item: Queued | None = None,
                   block: bool = True) -> None:
-        """Issue the queued collectives whose plans have arrived, in the
-        agreed order: with ``item``, those up to it (waiting for its plan
-        when ``block``), else every arrived one (with ``block``, every
-        queued one). Raises ``item``'s error."""
+        """Issue queued collectives in the agreed order: with ``item``,
+        those that come before it and ``item`` itself (waiting for plans
+        when ``block``), else every one whose turn has come (with
+        ``block``, every queued one). Raises ``item``'s error.
+
+        The order: the queue splits at its served collectives into
+        segments of submission order. A segment's negotiated collectives
+        are issued in the order of their plans' arrival, the same on every
+        rank; the served collective after a segment is issued once the
+        segment is, and before the next segment."""
         with self._issue_lock:
-            if block:
-                for q in ([item] if item is not None else list(self._queue)):
-                    if not q.issued:
-                        self._wait_plans(q)
-            ready = sorted((q for q in self._queue if q.ticket.ready()),
-                           key=lambda q: q.ticket.order())
-            limit = (item.ticket.order() if item is not None
-                     and item.ticket.ready() else None)
-            for q in ready:
-                if limit is not None and q.ticket.order() > limit:
+            while item is None or not item.issued:
+                head: list[Queued] = []
+                fence = None
+                for q in self._queue:
+                    if q.ticket.served:
+                        fence = q
+                        break
+                    head.append(q)
+                if not head and fence is None:
                     break
-                self._queue.remove(q)
-                q.issued = True
-                try:
-                    q.result = q.issue(self.negotiate_many_wait(q.ticket))
-                except Exception as e:  # the error of q's owner, not ours
-                    q.error = e
+                target = item is not None and any(q is item for q in head)
+                if block:
+                    for q in ([item] if target else head):
+                        if not q.issued:
+                            self._wait_plans(q)
+                ready = sorted((q for q in head if not q.issued
+                                and q.ticket.ready()),
+                               key=lambda q: q.ticket.order())
+                limit = (item.ticket.order() if target and not item.issued
+                         and item.ticket.ready() else None)
+                for q in ready:
+                    if limit is not None and q.ticket.order() > limit:
+                        break
+                    self._issue(q)
+                if (item is not None and item.issued) or any(
+                        not q.issued for q in head) or fence is None:
+                    break
+                self._issue(fence)
         if item is not None and item.error is not None:
             raise item.error
+
+    def _issue(self, q: Queued) -> None:
+        self._queue.remove(q)
+        q.issued = True
+        try:
+            q.result = q.issue(self.negotiate_many_wait(q.ticket))
+        except Exception as e:  # the error of q's owner, not ours
+            q.error = e
 
     def _wait_plans(self, q: Queued) -> None:
         """Wait for ``q``'s plans; a timeout or a failure is its error,
@@ -343,13 +487,138 @@ class DynamicService:
             q.error = e
 
     def stop(self):
+        _conformance.record("engine_service.py::DynamicService.stop",
+                            "svc_stop", (self.pset_key,))
         self._shutdown.set()
         self._tick.set()  # the adaptive sleep waits on _tick
+        if self._watchdog is not None:
+            # a departure on purpose: the marker goes out before the beats
+            # cease, so a peer still watching reads no death
+            self._watchdog.mark_leaving()
+            self._watchdog.stop()
         # a cycle thread parked in the gather long-poll may take the
         # server's wait to notice; it is a daemon, and _fail_all settles
         # every waiter
         self._thread.join(timeout=2)
         self._fail_all("engine service stopped")
+
+    def response_cache_stats(self) -> dict | None:
+        """This service's ResponseCache counters, or None where
+        ``HVD_RESPONSE_CACHE`` is off."""
+        return self._rcache.stats() if self._rcache is not None else None
+
+    def straggler_stats(self) -> dict:
+        """This service's straggler tracker (``health.StragglerTracker``)."""
+        return self._straggler.stats()
+
+    # -- the coordinator ResponseCache -------------------------------------
+
+    def _rc_refresh_epoch(self) -> None:
+        """At a knob-override epoch move, re-read ``HVD_RESPONSE_CACHE``:
+        the cache may turn on (cold), off (every entry drops) or change
+        size, and a cache that stays is emptied."""
+        epoch = envs.override_epoch()
+        if epoch == self._rc_epoch:
+            return
+        self._rc_epoch = epoch
+        cap = envs.response_cache_capacity(
+            getattr(self.transport, "world_size", 1))
+        rc = self._rcache
+        if cap <= 0:
+            if rc is not None:
+                rc.invalidate("knob override epoch: cache disabled")
+                self._rcache = None
+            return
+        if rc is None or rc.capacity != cap:
+            self._rcache = _rcache.ResponseCache(cap, self.pset_key)
+        else:
+            rc.invalidate("knob override epoch")
+
+    def _try_serve_cached(self, requests) -> NegotiationTicket | None:
+        """The whole batch answered from the ResponseCache, or None for a
+        real round (all or nothing, so a batch keeps its one round).
+        Serving needs every entry confirmed, still in the native cache (a
+        peer's changed metadata drops it there on every rank in the same
+        cycle), and no JOIN seen."""
+        self._rc_refresh_epoch()
+        rc = self._rcache
+        if rc is None or not requests:
+            return None
+        if (self._rc_join_latch or self._joined
+                or self.engine.join_pending()):
+            self._rc_join_latch = True
+            return None
+        responses = []
+        for req in requests:
+            resp = rc.lookup_confirmed(req)
+            if resp is None or not self.engine.cache_has(req["name"]):
+                rc.count_missed(sum(
+                    1 for r in requests if _rcache.cacheable(r)))
+                return None
+            responses.append(resp)
+        with self._mu:
+            if self._failure:
+                raise self._failure_error()
+            # the latch again, under the lock the cycle thread sets it
+            # under: a serve racing it is either stopped here or counted
+            # in the window _check_join_race reads
+            if self._rc_join_latch:
+                return None
+            for req in requests:
+                if req["name"] in self._pending:
+                    raise DuplicateNameError(
+                        f"tensor name {req['name']!r} is already being "
+                        "negotiated; pass a unique name=")
+            self._rc_serves_window += 1
+        pends = []
+        for resp in responses:
+            pend = _Pending()
+            pend.response = resp
+            pend.event.set()
+            pends.append(pend)
+        rc.count_served(len(requests))
+        for req in requests:
+            _timeline.record(req["name"], _timeline.NEGOTIATE,
+                             _timeline.PHASE_BEGIN)
+            _timeline.record(req["name"], _timeline.NEGOTIATE,
+                             _timeline.PHASE_END)
+        return NegotiationTicket(requests, pends, served=True)
+
+    def _check_join_race(self, datas) -> None:
+        """The cycle that first sees a peer's JOIN latches serving off. A
+        batch served since the last cycle was decided without knowing of
+        the join and was never scheduled through a round, so the joined
+        rank can never pair it: fail now with a
+        :class:`ResponseCacheJoinError` naming the joining rank, instead
+        of hanging to the exchange deadline."""
+        if self._rcache is None or self._rc_join_latch:
+            return
+        joiner = -1
+        for data in datas:
+            if not data:
+                continue
+            try:
+                reqs = parse_requests(data)
+            except Exception:  # a corrupt frame: ingest raises the error
+                continue
+            joiner = next((r["rank"] for r in reqs
+                           if r["request_type"] == REQ_JOIN), -1)
+            if joiner >= 0:
+                break
+        with self._mu:
+            served = self._rc_serves_window
+            self._rc_serves_window = 0
+            if joiner >= 0:
+                self._rc_join_latch = True
+        if joiner >= 0 and served:
+            gr = self._straggler.global_ranks
+            exc = ResponseCacheJoinError(
+                gr[joiner] if joiner < len(gr) else joiner, served)
+            hvd_logging.error("%s", exc)
+            _timeline.record_health_event("RC_JOIN_RACE")
+            self._fail_all(str(exc), exc)
+            self._shutdown.set()
+            self._tick.set()
 
     # -- internals ---------------------------------------------------------
 
@@ -366,15 +635,22 @@ class DynamicService:
             self._failure = message
             pend = list(self._pending.values())
             self._pending.clear()
+        if self._rcache is not None:
+            self._rcache.invalidate(message)  # a next world proves anew
         for p in pend:
             p.event.set()
 
     def _on_peer_failure(self, dead_rank: int, reason: str) -> None:
-        """A peer stopped exchanging: every waiter fails with a
-        :class:`PeerFailureError` naming it and the tensors still owed."""
+        """A peer died (the watchdog's callback, or a round that timed
+        out): every waiter fails with a :class:`PeerFailureError` naming
+        it and the tensors still owed; new submissions raise it."""
         with self._mu:
             owed = sorted(self._pending)
-        exc = PeerFailureError(dead_rank, reason, owed)
+        exc = _health.make_peer_failure_error(dead_rank, reason, owed)
+        _timeline.record_health_event(f"PEER_DEAD.{dead_rank}")
+        _conformance.record(
+            "engine_service.py::DynamicService._on_peer_failure",
+            "svc_abort", (self.pset_key, dead_rank))
         self._fail_all(str(exc), exc)
         self._shutdown.set()
         self._tick.set()
@@ -402,6 +678,11 @@ class DynamicService:
                 return
             except Exception as e:
                 hvd_logging.exception("engine cycle failed")
+                if self._watchdog is not None:
+                    # this process lives on and keeps beating: the poison
+                    # record fails its peers within one tick
+                    _timeline.record_health_event("POISON")
+                    self._watchdog.poison(f"engine cycle failed: {e}")
                 self._fail_all(f"engine negotiation failed: {e}")
                 return
             cycle_s = envs.get_float(
@@ -432,18 +713,40 @@ class DynamicService:
         datas, bitvs = self.transport.exchange(cycle, mine, mybits,
                                                EXCHANGE_TIMEOUT_S)
         if busy:
-            self.rounds += 1
-            self.round_seconds += getattr(self.transport, "last_round_s", 0)
+            self._record_round_metrics()
+        self._check_join_race(datas)
         self.engine.commit_cache_bits(and_bitvectors(bitvs))
         for rank, data in enumerate(datas):
             self.engine.ingest(rank, data)
         responses = self.engine.compute_responses()
+        _timeline.mark_cycle()
         if responses:
             self._deliver(responses)
         now = time.monotonic()
         if now - self._last_stall_check > _STALL_CHECK_INTERVAL_S:
             self._last_stall_check = now
             self._check_stalls()
+
+    def _record_round_metrics(self) -> None:
+        """One busy round (work of this rank waited on it): its count and
+        time, each member's submit lag, and the straggler tracker."""
+        round_s = getattr(self.transport, "last_round_s", None)
+        self.rounds += 1
+        if round_s is None:  # an in-memory transport: no KV timing
+            return
+        self.round_seconds += round_s
+        label = {"process_set": self.pset_key}
+        _metrics.NEGOTIATION_ROUNDS.inc(labels=label)
+        _metrics.NEGOTIATION_ROUND_SECONDS.observe(round_s, labels=label)
+        lags = getattr(self.transport, "last_lags", None) or {}
+        gr = self._straggler.global_ranks
+        for r in sorted(lags):
+            if 0 <= r < len(gr):
+                _metrics.NEGOTIATION_SUBMIT_LAG.observe(
+                    lags[r], labels={"rank": gr[r]})
+        with self._mu:
+            owed = sorted(self._pending)
+        self._straggler.observe(lags, owed)
 
     def _deliver(self, responses: list[Response]):
         # While joined, the plans of tensors this rank never submitted run
@@ -482,6 +785,8 @@ class DynamicService:
                         pend.order = self._delivered
                         self._delivered += 1
                         pend.event.set()
+                        _timeline.record(tname, _timeline.NEGOTIATE,
+                                         _timeline.PHASE_END)
 
     def _check_stalls(self):
         if envs.get_bool(envs.STALL_CHECK_DISABLE):
@@ -562,15 +867,37 @@ def get_service(pset=None) -> DynamicService | None:
             prefix = "engine/{}:{}/g{}/ps{}".format(
                 os.environ.get("MASTER_ADDR", "local"),
                 os.environ.get("MASTER_PORT", "0"), _generation, key)
+            # past one leader group a round runs member -> leader ->
+            # cross-leader -> fan-down (docs/negotiation.md); a smaller
+            # world keeps the flat exchange byte for byte
+            transport_cls = (HierarchicalTransport
+                             if envs.hier_negotiation_enabled(len(members))
+                             else KVTransport)
             svc = DynamicService(
-                engine, KVTransport(kv, len(members), members.index(me),
-                                    prefix=prefix),
-                device=runtime.device())
+                engine, transport_cls(kv, len(members), members.index(me),
+                                      prefix=prefix),
+                device=runtime.device(), global_ranks=members,
+                pset_key="global" if key == "0" else key)
             _services[key] = svc
             hvd_logging.info(
                 "negotiation service started for set %s: %d ranks over KV "
-                "%s", key, len(members), envs.get(envs.KV_ADDR))
+                "%s (%s)", key, len(members), envs.get(envs.KV_ADDR),
+                transport_cls.__name__)
     return svc
+
+
+def response_cache_stats() -> dict:
+    """Each service's coordinator ResponseCache counters, by process set
+    (``hvd.response_cache_stats()``); empty where the cache is off or no
+    service runs."""
+    with _service_lock:
+        svcs = dict(_services)
+    out = {}
+    for key, svc in svcs.items():
+        stats = svc.response_cache_stats()
+        if stats is not None:
+            out["global" if key == "0" else key] = stats
+    return out
 
 
 def reset_service() -> None:

@@ -22,7 +22,11 @@ class PeerFailureError(HorovodInternalError):
 
 
 class ResponseCacheJoinError(HorovodInternalError):
-    """Locally served collectives raced a peer's JOIN and cannot pair."""
+    """The coordinator ResponseCache served a batch locally while a peer's
+    JOIN was in flight (``HVD_RESPONSE_CACHE``): those collectives never
+    went through a real round, so the joined rank cannot pair them. The
+    service detects the race on the cycle that first sees the JOIN and
+    fails at once with this error, naming the joining rank."""
 
     def __init__(self, joining_rank: int, served_batches: int):
         self.joining_rank = joining_rank
@@ -31,7 +35,11 @@ class ResponseCacheJoinError(HorovodInternalError):
                else "an unidentified rank")
         super().__init__(
             f"coordinator ResponseCache served {served_batches} batch(es) "
-            f"locally while {who}'s JOIN was in flight")
+            f"locally while {who}'s JOIN was in flight (pre-join-latch "
+            "window); the served collectives cannot pair with the joined "
+            "rank — re-negotiate (elastic mode re-forms automatically). "
+            "Keep HVD_RESPONSE_CACHE off for join-terminated workloads "
+            "(docs/negotiation.md).")
 
 
 class QosAdmissionError(RuntimeError):

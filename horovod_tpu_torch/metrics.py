@@ -1,0 +1,533 @@
+"""Metrics registry: counters, gauges and histograms with labels, their
+Prometheus exposition and a JSON-shaped dump (port of
+``horovod_tpu/metrics.py``).
+
+Two surfaces read the instruments back:
+
+* ``GET /metrics``, Prometheus text format 0.0.4, served by the KV server
+  (``runner/http_kv.py``) and, per worker, by :func:`serve` on
+  ``HVD_METRICS_PORT`` + the process's rank (:func:`maybe_serve`, called
+  from ``runtime.init``);
+* :func:`metrics_dump` (``hvd.metrics_dump()``), the same samples as
+  dicts.
+
+A process is a rank, so there is one process-wide store: the JAX package's
+per-``RankContext`` stores of its loopback worlds (threads of one process
+acting as ranks) have no counterpart here. Exposition labels every series
+with this process's launcher rank as ``rank`` unless the series names a
+rank of its own (the straggler counter names the straggler), in which case
+the reporter's rank is ``reporter``, as in the reference.
+
+The catalog below holds the instruments whose producers the port has,
+under the reference's literal names and help texts: the negotiation
+rounds and their times, submit lags, straggler rounds, the coordinator
+ResponseCache's hits and misses, KV operations, retries and give-ups, the
+health watchdog's beats, beat errors and peer failures, and fault fires.
+
+With ``HVD_METRICS=0`` every instrument not marked ``always`` records
+nothing (one cached bool). The retry counters are ``always``: they back
+``health_stats()["retries"]``.
+"""
+
+from __future__ import annotations
+
+import threading
+
+from .utils import envs
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "counter", "gauge", "histogram",
+    "enabled", "refresh", "set_enabled", "instruments", "snapshot",
+    "delta", "prometheus_text", "dump", "metrics_dump", "serve",
+    "maybe_serve", "stop_serving", "reset",
+]
+
+_force_enabled: bool | None = None  # a test's override; None: the knob
+
+
+def _read_enabled() -> bool:
+    if _force_enabled is not None:
+        return _force_enabled
+    return envs.get_bool(envs.METRICS, True)
+
+
+_enabled = _read_enabled()
+
+
+def enabled() -> bool:
+    """Whether instruments record (``HVD_METRICS``, default on)."""
+    return _enabled
+
+
+def refresh() -> None:
+    """Read ``HVD_METRICS`` again."""
+    global _enabled
+    _enabled = _read_enabled()
+
+
+def set_enabled(value: bool | None) -> None:
+    """Force recording on or off; ``None`` goes back to the knob."""
+    global _force_enabled
+    _force_enabled = value
+    refresh()
+
+
+# {(name, sorted label items): value}; a histogram's value is a _Hist
+_mu = threading.Lock()  # a leaf: nothing else is taken under it
+_values: dict = {}
+
+
+class _Hist:
+    __slots__ = ("counts", "sum", "count")
+
+    def __init__(self, nbuckets: int):
+        self.counts = [0] * nbuckets  # per bucket; cumulated at exposition
+        self.sum = 0.0
+        self.count = 0
+
+
+_registry: "dict[str, _Instrument]" = {}
+
+
+class _Instrument:
+    kind = "untyped"
+
+    def __init__(self, name: str, help: str, labels=(),
+                 always: bool = False):
+        self.name = name
+        self.help = help
+        self.labelnames = tuple(labels)
+        self.always = always
+
+    def _on(self) -> bool:
+        return _enabled or self.always
+
+    def _key(self, labels) -> tuple:
+        if labels is None:
+            if self.labelnames:
+                raise ValueError(
+                    f"{self.name} requires labels {self.labelnames}")
+            return (self.name, ())
+        if set(labels) != set(self.labelnames):
+            raise ValueError(
+                f"{self.name} labels {sorted(labels)} != declared "
+                f"{sorted(self.labelnames)}")
+        return (self.name,
+                tuple(sorted((k, str(v)) for k, v in labels.items())))
+
+    def series(self) -> dict:
+        """``{label items: value}`` of this instrument."""
+        with _mu:
+            return {k[1]: v for k, v in _values.items() if k[0] == self.name}
+
+    def value(self, labels=None, default=0.0):
+        key = self._key(labels)
+        with _mu:
+            return _values.get(key, default)
+
+    def reset(self) -> None:
+        """Drop this instrument's series."""
+        with _mu:
+            for k in [k for k in _values if k[0] == self.name]:
+                del _values[k]
+
+    def bind(self, labels=None) -> "_Bound":
+        """A handle on one label set, validated once."""
+        return _Bound(self, self._key(labels))
+
+
+def _rec_add(inst: _Instrument, key: tuple, amount: float) -> None:
+    if inst._on():
+        with _mu:
+            _values[key] = _values.get(key, 0.0) + amount
+
+
+def _rec_set(inst: _Instrument, key: tuple, value: float) -> None:
+    if inst._on():
+        with _mu:
+            _values[key] = float(value)
+
+
+def _rec_observe(inst: "Histogram", key: tuple, value: float) -> None:
+    if not inst._on():
+        return
+    with _mu:
+        h = _values.get(key)
+        if h is None:
+            h = _values[key] = _Hist(len(inst.buckets))
+        for i, bound in enumerate(inst.buckets):
+            if value <= bound:
+                h.counts[i] += 1
+                break
+        # past the last bound it counts only in the implicit +Inf bucket
+        h.sum += value
+        h.count += 1
+
+
+class _Bound:
+    __slots__ = ("inst", "key")
+
+    def __init__(self, inst: _Instrument, key: tuple):
+        self.inst = inst
+        self.key = key
+
+    def inc(self, amount: float = 1) -> None:
+        _rec_add(self.inst, self.key, amount)
+
+    def set(self, value: float) -> None:
+        _rec_set(self.inst, self.key, value)
+
+    def observe(self, value: float) -> None:
+        _rec_observe(self.inst, self.key, value)
+
+
+class Counter(_Instrument):
+    kind = "counter"
+
+    def inc(self, amount: float = 1, labels=None) -> None:
+        _rec_add(self, self._key(labels), amount)
+
+
+class Gauge(_Instrument):
+    kind = "gauge"
+
+    def set(self, value: float, labels=None) -> None:
+        _rec_set(self, self._key(labels), value)
+
+    def add(self, amount: float, labels=None) -> None:
+        _rec_add(self, self._key(labels), amount)
+
+
+# Negotiation rounds over an HTTP KV store span milliseconds (one host) to
+# seconds (many hosts); the straggler threshold (1 s) lies inside.
+DEFAULT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                   0.5, 1.0, 2.5, 5.0, 10.0)
+
+
+class Histogram(_Instrument):
+    kind = "histogram"
+
+    def __init__(self, name: str, help: str, labels=(),
+                 buckets=DEFAULT_BUCKETS, always: bool = False):
+        super().__init__(name, help, labels, always)
+        self.buckets = tuple(sorted(buckets))
+
+    def observe(self, value: float, labels=None) -> None:
+        _rec_observe(self, self._key(labels), value)
+
+
+def _register(inst: _Instrument) -> _Instrument:
+    if inst.name in _registry:
+        raise ValueError(f"metric {inst.name!r} already registered")
+    _registry[inst.name] = inst
+    return inst
+
+
+def counter(name: str, help: str, labels=(), always: bool = False) -> Counter:
+    return _register(Counter(name, help, labels, always))
+
+
+def gauge(name: str, help: str, labels=(), always: bool = False) -> Gauge:
+    return _register(Gauge(name, help, labels, always))
+
+
+def histogram(name: str, help: str, labels=(), buckets=DEFAULT_BUCKETS,
+              always: bool = False) -> Histogram:
+    return _register(Histogram(name, help, labels, buckets, always))
+
+
+def instruments() -> dict:
+    """The catalog: ``{name: instrument}``."""
+    return dict(_registry)
+
+
+# --------------------------------------------------------------------------
+# the catalog (reference metrics.py:371-551, the instruments whose producers
+# the port has)
+# --------------------------------------------------------------------------
+
+# -- negotiation (engine_service.KVTransport / DynamicService) -------------
+NEGOTIATION_ROUNDS = counter(
+    "hvd_negotiation_rounds_total",
+    "Busy negotiation rounds (cycles with local work pending).",
+    labels=("process_set",))
+NEGOTIATION_ROUND_SECONDS = histogram(
+    "hvd_negotiation_round_seconds",
+    "Wall time of one busy negotiation exchange (publish -> all "
+    "members' frames gathered).",
+    labels=("process_set",))
+NEGOTIATION_SUBMIT_LAG = histogram(
+    "hvd_negotiation_submit_lag_seconds",
+    "Per-rank submit->ready breakdown: how far behind the round's first "
+    "submitter each rank's frame reached the KV server (server receipt "
+    "clock, skew-free).",
+    labels=("rank",))
+STRAGGLER_ROUNDS = counter(
+    "hvd_straggler_rounds_total",
+    "Rounds in which the labeled global rank was last to submit by more "
+    "than HVD_STRAGGLER_THRESHOLD (the stall-check analog).",
+    labels=("rank",))
+RESPONSE_CACHE_HITS = counter(
+    "hvd_response_cache_hits_total",
+    "Negotiation requests served locally from the coordinator "
+    "ResponseCache (HVD_RESPONSE_CACHE) — zero KV rounds.",
+    labels=("process_set",))
+RESPONSE_CACHE_MISSES = counter(
+    "hvd_response_cache_misses_total",
+    "Cacheable negotiation requests that took a full round (entry "
+    "absent, unconfirmed, invalidated, or a join in flight).",
+    labels=("process_set",))
+
+# -- KV transport (runner/http_kv.KVClient) --------------------------------
+KV_OPS = counter(
+    "hvd_kv_ops_total",
+    "KV client operations by verb (gather = one server-side long-poll); "
+    "divide by hvd_negotiation_rounds_total for KV ops/round.",
+    labels=("op",))
+
+# -- retry ladder (utils/retry.py; backs health_stats()["retries"]) --------
+RETRY_RETRIES = counter(
+    "hvd_retry_retries_total",
+    "Retries taken per RPC/KV site (the HVD_RETRY_* backoff ladder).",
+    labels=("site",), always=True)
+RETRY_GIVEUPS = counter(
+    "hvd_retry_giveups_total",
+    "Retryable failures that exhausted attempts/deadline per site.",
+    labels=("site",), always=True)
+
+# -- health watchdog (health.py) -------------------------------------------
+HEALTH_BEATS = counter(
+    "hvd_health_beats_total",
+    "Liveness beats published by this rank's watchdogs.")
+HEALTH_BEAT_ERRORS = counter(
+    "hvd_health_beat_errors_total",
+    "Beat publishes that failed through the whole retry ladder.")
+HEALTH_PEER_FAILURES = counter(
+    "hvd_health_peer_failures_total",
+    "Peer-death decisions, labeled with the dead global rank.",
+    labels=("rank",))
+
+# -- fault injection (utils/faults.py) -------------------------------------
+FAULT_FIRES = counter(
+    "hvd_fault_fires_total",
+    "Injected faults fired per site (HVD_FAULT_SPEC chaos runs only).",
+    labels=("site",))
+
+
+# --------------------------------------------------------------------------
+# snapshot, delta, exposition
+# --------------------------------------------------------------------------
+
+def snapshot() -> dict:
+    """A flat copy: ``{(name, label items): value}``; a histogram gives
+    ``name_sum`` and ``name_count`` entries, so deltas stay numbers."""
+    with _mu:
+        items = list(_values.items())
+    out: dict = {}
+    for (name, labelitems), v in items:
+        if isinstance(v, _Hist):
+            out[(name + "_sum", labelitems)] = v.sum
+            out[(name + "_count", labelitems)] = v.count
+        else:
+            out[(name, labelitems)] = v
+    return out
+
+
+def delta(new: dict, old: dict) -> dict:
+    """``new - old`` per series (a series absent from ``old`` counts from
+    zero)."""
+    return {k: v - old.get(k, 0.0) for k, v in new.items()}
+
+
+def _escape(value: str) -> str:
+    return (value.replace("\\", "\\\\").replace("\n", "\\n")
+            .replace('"', '\\"'))
+
+
+def _process_rank_label() -> str:
+    r = envs.launcher_rank()
+    return "" if r is None else str(r)
+
+
+def _labelled(labelitems, rank: str) -> tuple:
+    """The series' labels with this process's rank added as ``rank``, or
+    as ``reporter`` where the series names a rank of its own."""
+    labels = dict(labelitems)
+    if rank:
+        if "rank" not in labels:
+            labels["rank"] = rank
+        elif "reporter" not in labels:
+            labels["reporter"] = rank
+    return tuple(sorted(labels.items()))
+
+
+def _exposed() -> list:
+    """``[(name, label items with the rank, value)]`` of every series."""
+    rank = _process_rank_label()
+    with _mu:
+        items = list(_values.items())
+    out = []
+    for (name, labelitems), v in items:
+        if isinstance(v, _Hist):
+            copy = _Hist(len(v.counts))
+            copy.counts, copy.sum, copy.count = list(v.counts), v.sum, v.count
+            v = copy
+        out.append((name, _labelled(labelitems, rank), v))
+    return out
+
+
+def _plain_labels(labelitems) -> str:
+    if not labelitems:
+        return ""
+    return ("{" + ",".join(f'{k}="{_escape(str(v))}"'
+                           for k, v in labelitems) + "}")
+
+
+def _fmt_num(v) -> str:
+    f = float(v)
+    return str(int(f)) if f == int(f) else repr(f)
+
+
+def prometheus_text() -> str:
+    """The ``/metrics`` payload: every instrument's HELP and TYPE lines,
+    samples or not, then one line a series (a histogram: its cumulative
+    buckets, ``_sum`` and ``_count``)."""
+    per_name: dict[str, list[str]] = {}
+    for name, labelitems, v in _exposed():
+        lines = per_name.setdefault(name, [])
+        labels = _plain_labels(labelitems)
+        inst = _registry.get(name)
+        if isinstance(v, _Hist):
+            cum = 0
+            base = list(labelitems)
+            for i, bound in enumerate(inst.buckets if inst else ()):
+                cum += v.counts[i]
+                bl = _plain_labels(tuple(sorted(base + [("le",
+                                                         f"{bound:g}")])))
+                lines.append(f"{name}_bucket{bl} {cum}")
+            bl = _plain_labels(tuple(sorted(base + [("le", "+Inf")])))
+            lines.append(f"{name}_bucket{bl} {v.count}")
+            lines.append(f"{name}_sum{labels} {_fmt_num(v.sum)}")
+            lines.append(f"{name}_count{labels} {v.count}")
+        else:
+            lines.append(f"{name}{labels} {_fmt_num(v)}")
+    out: list[str] = []
+    for name, inst in sorted(_registry.items()):
+        out.append(f"# HELP {name} {_escape(inst.help)}")
+        out.append(f"# TYPE {name} {inst.kind}")
+        out.extend(sorted(per_name.get(name, ())))
+    return "\n".join(out) + "\n"
+
+
+def dump() -> dict:
+    """``hvd.metrics_dump()``: every instrument with its series, as
+    dicts (labels carry this process's rank, as on ``/metrics``)."""
+    out: dict = {}
+    for name, inst in sorted(_registry.items()):
+        entry = {"type": inst.kind, "help": inst.help,
+                 "labels": list(inst.labelnames), "series": []}
+        if inst.kind == "histogram":
+            entry["buckets"] = list(inst.buckets)
+        out[name] = entry
+    for name, labelitems, v in _exposed():
+        labels = dict(labelitems)
+        if isinstance(v, _Hist):
+            out[name]["series"].append({
+                "labels": labels, "count": v.count, "sum": v.sum,
+                "bucket_counts": list(v.counts)})
+        else:
+            out[name]["series"].append({"labels": labels, "value": v})
+    for entry in out.values():
+        entry["series"].sort(key=lambda s: sorted(s["labels"].items()))
+    return out
+
+
+metrics_dump = dump  # hvd.metrics_dump
+
+
+# --------------------------------------------------------------------------
+# the per-worker exposition server (HVD_METRICS_PORT)
+# --------------------------------------------------------------------------
+
+_server = None
+
+
+def serve(port: int = 0, host: str = "0.0.0.0") -> int:
+    """Serve ``GET /metrics`` on ``port`` from a daemon thread; returns the
+    bound port. A running server keeps its port."""
+    global _server
+    with _mu:
+        if _server is not None:
+            return _server.server_address[1]
+    import http.server
+
+    class _Handler(http.server.BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):  # no stderr line per request
+            pass
+
+        def do_GET(self):
+            if self.path.rstrip("/") not in ("", "/metrics"):
+                self.send_response(404)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            write_prometheus(self)
+
+    class _Server(http.server.ThreadingHTTPServer):
+        daemon_threads = True
+        allow_reuse_address = True
+
+    srv = _Server((host, port), _Handler)
+    with _mu:
+        if _server is not None:  # another thread started one first
+            srv.server_close()
+            return _server.server_address[1]
+        _server = srv
+    threading.Thread(target=srv.serve_forever, daemon=True,
+                     name="hvd-metrics-server").start()
+    return srv.server_address[1]
+
+
+def write_prometheus(handler) -> None:
+    """Answer an HTTP GET on ``handler`` with :func:`prometheus_text`."""
+    body = prometheus_text().encode()
+    handler.send_response(200)
+    handler.send_header("Content-Type",
+                        "text/plain; version=0.0.4; charset=utf-8")
+    handler.send_header("Content-Length", str(len(body)))
+    handler.end_headers()
+    handler.wfile.write(body)
+
+
+def maybe_serve() -> int | None:
+    """Start :func:`serve` on ``HVD_METRICS_PORT`` + this process's rank
+    when that knob is set (co-hosted ranks do not collide); returns the
+    port, or None. A port already taken is logged, not raised."""
+    if not _enabled:
+        return None
+    base = envs.get_int(envs.METRICS_PORT, 0)
+    if base <= 0:
+        return None
+    port = base + (envs.launcher_rank() or 0)
+    try:
+        return serve(port)
+    except OSError as e:
+        from .utils import logging as hvd_logging
+        hvd_logging.warning("metrics exposition server failed on port "
+                            "%d: %s", port, e)
+        return None
+
+
+def stop_serving() -> None:
+    global _server
+    with _mu:
+        srv, _server = _server, None
+    if srv is not None:
+        srv.shutdown()
+        srv.server_close()
+
+
+def reset() -> None:
+    """Drop every sample; the catalog stays."""
+    with _mu:
+        _values.clear()

@@ -15,9 +15,12 @@ uneven ``alltoall`` exchanges the splits first, so that each member learns
 what it receives. The object collectives pickle through
 ``torch.distributed``'s own.
 
-Under a launcher's KV store the eager collectives negotiate before they
-issue (:func:`_gate`, ``engine_service.py``): the plan gives the agreed
-order, the row counts of an allgather and the received splits of an
+Each eager collective's issue is a range on the timeline (``timeline.py``:
+``ALLREDUCE``, ``GROUPED_ALLREDUCE``, ``ALLGATHER``, ``BROADCAST``,
+``GROUPED_BROADCAST``, ``ALLTOALL``, ``REDUCESCATTER``), on the lane of
+its name. Under a launcher's KV store the eager collectives negotiate
+before they issue (:func:`_gate`, ``engine_service.py``): the plan gives
+the agreed order, the row counts of an allgather and the received splits of an
 uneven alltoall, and :func:`join` lets a rank whose data ran out send
 zeros in its place (:func:`_execute_joined_zeros`). ADASUM reduces by
 ``ops/adasum.py`` and is not negotiated, as in the reference.
@@ -34,7 +37,7 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
-from .. import runtime
+from .. import runtime, timeline
 from . import adasum
 from ..process_sets import ProcessSet, _resolve
 from ..utils import envs
@@ -315,15 +318,34 @@ def _group_requests(base: str, request_type: int, shapes_dtypes,
             for i, (shape, dtype) in enumerate(shapes_dtypes)]
 
 
-def _gate(pset: ProcessSet, kind: str, name, requests, issue) -> Handle:
+def _ranged(issue, lane: str, activity: str | None):
+    """``issue`` inside a timeline range of ``activity`` on ``lane`` (the
+    reference's per-op ranges, collectives.py:1538-2249); None: no
+    range."""
+    if activity is None:
+        return issue
+
+    def ranged(responses=None):
+        with timeline.op_range(lane, activity):
+            return issue(responses)
+
+    return ranged
+
+
+def _gate(pset: ProcessSet, kind: str, name, requests, issue,
+          activity: str | None = None) -> Handle:
     """``issue(responses)``, a Handle: at once where no negotiation
     service runs for ``pset`` (``issue(None)``), else queued behind the
-    negotiation of ``requests(base name)``."""
+    negotiation of ``requests(base name)``. The issue runs inside a
+    timeline range of ``activity`` on the lane of the op's name (the
+    negotiated one, else the activity's in lower case)."""
     from .. import engine_service
     svc = engine_service.get_service(pset)
     if svc is None:
-        return issue(None)
-    item = svc.submit(requests(name or _auto_name(kind, pset)), issue)
+        return _ranged(issue, name or (activity or kind).lower(),
+                       activity)(None)
+    base = name or _auto_name(kind, pset)
+    item = svc.submit(requests(base), _ranged(issue, base, activity))
     return _Negotiated(svc, item)
 
 
@@ -438,12 +460,13 @@ def _reduce_async(tensors, *, op: ReduceOp, prescale_factor: float,
 
         return Handle([w for w, _ in reduced if w is not None], finish)
 
+    activity = "ALLREDUCE" if len(tensors) == 1 else "GROUPED_ALLREDUCE"
     if negotiate is None:
-        return issue()
+        return _ranged(issue, name or activity.lower(), activity)()
     return _gate(negotiate, "allreduce", name, lambda base: _group_requests(
         base, REQ_ALLREDUCE, [(t.shape, w) for t, w in zip(tensors, wire)],
         reduce_op=int(op), prescale=float(prescale_factor),
-        postscale=float(postscale_factor)), issue)
+        postscale=float(postscale_factor)), issue, activity)
 
 
 def grouped_allreduce(tensors: Sequence[torch.Tensor], **kw) -> list:
@@ -493,7 +516,8 @@ def grouped_broadcast_async(tensors: Sequence[torch.Tensor], root_rank: int,
 
     return _gate(pset, "broadcast", name, lambda base: _group_requests(
         base, REQ_BROADCAST, [(t.shape, t.dtype) for t in tensors],
-        root_rank=root_rank), issue)
+        root_rank=root_rank), issue,
+        "BROADCAST" if len(tensors) == 1 else "GROUPED_BROADCAST")
 
 
 def grouped_broadcast(tensors: Sequence[torch.Tensor], root_rank: int,
@@ -568,7 +592,8 @@ def allgather_async(tensor: torch.Tensor, *,
         return _allgather_async(tensor, pset, rows=rows)
 
     return _gate(pset, "allgather", name, lambda base: [
-        _request(base, REQ_ALLGATHER, tensor.shape, tensor.dtype)], issue)
+        _request(base, REQ_ALLGATHER, tensor.shape, tensor.dtype)], issue,
+        "ALLGATHER")
 
 
 def _gather_levels(pset: ProcessSet) -> tuple:
@@ -657,7 +682,7 @@ def alltoall(tensor: torch.Tensor, splits=None, *,
 
         return _gate(pset, "alltoall", name, lambda base: [
             _request(base, REQ_ALLTOALL, x.shape, x.dtype)],
-            issue_even).synchronize()
+            issue_even, "ALLTOALL").synchronize()
     row = torch.as_tensor(splits)
     if row.shape != (n,):
         raise ValueError(f"splits must be one row of length {n}, got shape "
@@ -685,7 +710,7 @@ def alltoall(tensor: torch.Tensor, splits=None, *,
 
     return _gate(pset, "alltoall", name, lambda base: [
         _request(base, REQ_ALLTOALL, x.shape, x.dtype, splits=send)],
-        issue).synchronize()
+        issue, "ALLTOALL").synchronize()
 
 
 def reducescatter(tensor: torch.Tensor, *, op: ReduceOp = ReduceOp.SUM,
@@ -721,7 +746,7 @@ def reducescatter(tensor: torch.Tensor, *, op: ReduceOp = ReduceOp.SUM,
 
     return _gate(pset, "reducescatter", name, lambda base: [
         _request(base, REQ_REDUCESCATTER, x.shape, x.dtype,
-                 reduce_op=int(op))], issue).synchronize()
+                 reduce_op=int(op))], issue, "REDUCESCATTER").synchronize()
 
 
 def broadcast_object(obj, root_rank: int = 0, *,

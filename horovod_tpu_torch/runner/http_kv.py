@@ -13,6 +13,13 @@ failures and transient HTTP statuses (``utils/retry.py``); a bad signature
 negotiation round costs each member: it blocks until N keys exist under
 the scope and returns them framed, with each key's receipt time on the
 server's clock.
+
+``GET /metrics`` answers with this process's metrics registry in
+Prometheus text (``metrics.py``), unsigned, as the reference serves it: a
+scraper cannot sign, and the payload is counters, never a stored value.
+Each client request counts in ``hvd_kv_ops_total{op=...}`` and passes the
+fault-injection point ``kv.<op>`` (``put``, ``get``, ``delete``,
+``gather``), whose injected faults retry as transport failures do.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ import urllib.error
 import urllib.request
 from urllib.parse import parse_qs, urlparse
 
+from .. import metrics as _metrics
+from ..utils import faults as _faults
 from ..utils import retry as _retry
 
 SECRET_ENV = "HVD_SECRET_KEY"
@@ -42,8 +51,10 @@ DEFAULT_TIMEOUT_S = 30.0  # per request (reference HVD_GLOO_TIMEOUT_SECONDS)
 
 
 def _transient_kv_error(exc: BaseException) -> bool:
-    """Connection failures and transient HTTP statuses are retried;
-    semantic answers (404, a refused signature) are not."""
+    """Connection failures, transient HTTP statuses and injected faults
+    are retried; semantic answers (404, a refused signature) are not."""
+    if isinstance(exc, _faults.FaultInjected):
+        return True
     if isinstance(exc, urllib.error.HTTPError):
         return exc.code in _TRANSIENT_HTTP
     return isinstance(exc, (urllib.error.URLError, ConnectionError,
@@ -85,6 +96,9 @@ class KVHandler(http.server.BaseHTTPRequestHandler):
             self.wfile.write(body)
 
     def do_GET(self):
+        if self.path.rstrip("/") == "/metrics":
+            _metrics.write_prometheus(self)
+            return
         if not self._verify("GET", b""):
             self._reply(403)
             return
@@ -232,6 +246,11 @@ class KVClient:
 
     def _read(self, method: str, path: str, payload: bytes = b"",
               timeout: float | None = None) -> bytes:
+        op = "gather" if path.startswith("/__gather__/") else method.lower()
+        _faults.inject(f"kv.{op}")
+        # one sample a server round trip (a retry is another): over
+        # hvd_negotiation_rounds_total, the KV operations a round
+        _metrics.KV_OPS.inc(labels={"op": op})
         req = urllib.request.Request(
             f"{self._base}{path}", data=payload if method == "PUT" else None,
             method=method)

@@ -108,6 +108,11 @@ def init(device: str | torch.device | None = None,
             table.add(list(ranks), force=True)
     from .ops import hierarchical  # deferred: it imports this module
     hierarchical.make_default_groups()
+    # HVD_TIMELINE and HVD_METRICS_PORT: a file or port that fails is
+    # logged and does not stop training
+    from . import metrics, timeline
+    timeline.maybe_autostart(_state.rank, size)
+    metrics.maybe_serve()
     hvd_logging.info("initialized: rank %d of %d on %s (%s)", _state.rank,
                      size, device, dist.get_backend())
 
@@ -117,8 +122,11 @@ def shutdown() -> None:
     global _state
     if _state is None:
         return
-    from . import engine_service  # deferred: it imports this module
+    from . import conformance, engine_service  # deferred: they import it
     engine_service.reset_service()  # before the groups its joins may use
+    # the trace goes out last: the teardown above records events too
+    conformance.maybe_dump("shutdown")
+    conformance.reset()
     if dist.is_initialized():
         if _state.process_set_table is not None:
             _state.process_set_table.clear()

@@ -36,6 +36,27 @@ STALL_SHUTDOWN_TIME_SECONDS = "STALL_SHUTDOWN_TIME_SECONDS"  # 0: never
 CYCLE_TIME = "CYCLE_TIME"  # ms between idle negotiation cycles
 ADAPTIVE_CYCLE = "ADAPTIVE_CYCLE"  # event-driven negotiation tick (default on)
 PENDING_CYCLE_TIME = "PENDING_CYCLE_TIME"  # ms; cycle floor while work is in flight
+# The negotiation control plane (negotiation/) and the observability it
+# reports to (timeline.py, metrics.py, health.py, conformance.py,
+# utils/faults.py, utils/retry.py)
+RESPONSE_CACHE = "RESPONSE_CACHE"  # auto|0|1|capacity: the coordinator ResponseCache
+NEGOTIATION_GROUP_SIZE = "NEGOTIATION_GROUP_SIZE"  # ranks a leader group
+HIER_NEGOTIATION = "HIER_NEGOTIATION"  # auto|1|0: the two-level exchange
+TIMELINE = "TIMELINE"  # Chrome-trace output path (operations.cc:466-488)
+TIMELINE_MARK_CYCLES = "TIMELINE_MARK_CYCLES"  # an instant a negotiation cycle
+METRICS = "METRICS"  # unified metrics registry (0 = hot instruments off)
+METRICS_PORT = "METRICS_PORT"  # base port of the per-worker /metrics server
+HEALTH_INTERVAL = "HEALTH_INTERVAL"  # s between liveness beats (0 = watchdog off)
+HEALTH_TIMEOUT = "HEALTH_TIMEOUT"  # s without a beat: the peer is dead
+STRAGGLER_THRESHOLD = "STRAGGLER_THRESHOLD"  # s of submit lag of a straggler
+CONFORMANCE = "CONFORMANCE"  # cross-rank lockstep conformance recorder (0 = off)
+CONFORMANCE_DIR = "CONFORMANCE_DIR"  # trace directory (empty: on demand only)
+CONFORMANCE_RING = "CONFORMANCE_RING"  # full-payload ring capacity of the recorder
+FAULT_SPEC = "FAULT_SPEC"  # deterministic fault-injection spec (tests, chaos runs)
+RETRY_MAX_ATTEMPTS = "RETRY_MAX_ATTEMPTS"  # attempts per retried KV call
+RETRY_BACKOFF_MS = "RETRY_BACKOFF_MS"  # backoff before the first retry
+RETRY_MAX_BACKOFF_MS = "RETRY_MAX_BACKOFF_MS"  # backoff growth cap
+RETRY_JITTER = "RETRY_JITTER"  # +/- fraction of deterministic jitter on backoff
 
 _PREFIXES = ("HVD_", "HOROVOD_")
 
@@ -47,13 +68,52 @@ DEFAULT_BUCKET_BYTES = 64 * 1024 * 1024
 DEFAULT_STALL_WARNING_SECONDS = 60.0
 
 
+# Runtime knob overrides (the reference's ParameterManager mutates live
+# knob values, operations.cc:490-523). They sit under the environment: an
+# environment variable always wins. Consumers that cache derived state (the
+# coordinator ResponseCache) compare epochs instead of re-reading knobs.
+_overrides: dict[str, str] = {}
+_override_epoch = 0
+
+
+def override_epoch() -> int:
+    """Monotonic counter of override mutations."""
+    return _override_epoch
+
+
+def set_override(name: str, value) -> None:
+    """Install a runtime override of knob ``name``; re-applying the same
+    value does not move the epoch."""
+    global _override_epoch
+    value = str(value)
+    if _overrides.get(name) == value:
+        return
+    _overrides[name] = value
+    _override_epoch += 1
+
+
+def clear_override(name: str) -> None:
+    global _override_epoch
+    if _overrides.pop(name, None) is not None:
+        _override_epoch += 1
+
+
+def clear_overrides() -> None:
+    global _override_epoch
+    if _overrides:
+        _override_epoch += 1
+    _overrides.clear()
+
+
 def get(name: str, default: str | None = None) -> str | None:
-    """The value of knob ``name`` under the first prefix that is set."""
+    """The value of knob ``name`` under the first prefix that is set, else
+    its runtime override, else ``default``."""
     for prefix in _PREFIXES:
         val = os.environ.get(prefix + name)
         if val is not None:
             return val
-    return default
+    val = _overrides.get(name)
+    return default if val is None else val
 
 
 def get_bool(name: str, default: bool = False) -> bool:
@@ -96,3 +156,98 @@ def mesh_axes() -> str:
     (``parallel/mesh.py``), a comma list of ``name:size`` pairs such as
     ``"seq:2"`` or ``"expert:4,stage:2"``; empty for none."""
     return (get(MESH_AXES, "") or "").strip()
+
+
+def launcher_rank() -> int | None:
+    """This process's rank as the launcher set it (``HVD_RANK``, else the
+    ``RANK`` of ``torch.distributed``'s launch contract), before or without
+    :func:`runtime.init`; None outside a launched world."""
+    for val in (get("RANK"), os.environ.get("RANK")):
+        if val is not None:
+            try:
+                return int(val)
+            except ValueError:
+                pass
+    return None
+
+
+# Failure-domain defaults (docs/robustness.md): a dead peer surfaces as a
+# PeerFailureError in seconds, far inside the 600 s exchange deadline; the
+# retry ladder (50 ms * 2^k capped at 2 s, 5 attempts) absorbs seconds of
+# KV flap.
+DEFAULT_HEALTH_INTERVAL_S = 2.0
+DEFAULT_HEALTH_TIMEOUT_S = 30.0
+DEFAULT_STRAGGLER_THRESHOLD_S = 1.0
+DEFAULT_RETRY_MAX_ATTEMPTS = 5
+DEFAULT_RETRY_BACKOFF_MS = 50.0
+DEFAULT_RETRY_MAX_BACKOFF_MS = 2000.0
+DEFAULT_RETRY_JITTER = 0.25
+DEFAULT_CONFORMANCE_RING = 256
+# Hierarchical control plane (docs/negotiation.md): one leader per group of
+# 8; the coordinator ResponseCache is on by default where the hierarchy is.
+DEFAULT_NEGOTIATION_GROUP_SIZE = 8
+DEFAULT_RESPONSE_CACHE_CAPACITY = 1024
+
+
+def health_interval_s() -> float:
+    return get_float(HEALTH_INTERVAL, DEFAULT_HEALTH_INTERVAL_S)
+
+
+def health_timeout_s() -> float:
+    return get_float(HEALTH_TIMEOUT, DEFAULT_HEALTH_TIMEOUT_S)
+
+
+def straggler_threshold_s() -> float:
+    return get_float(STRAGGLER_THRESHOLD, DEFAULT_STRAGGLER_THRESHOLD_S)
+
+
+def conformance_enabled() -> bool:
+    """The lockstep conformance recorder (``conformance.py``); off by
+    default."""
+    return get_bool(CONFORMANCE, False)
+
+
+def conformance_dir() -> str:
+    """``HVD_CONFORMANCE_DIR``: where traces are dumped at shutdown; empty
+    keeps them in memory until ``conformance_dump()``."""
+    return (get(CONFORMANCE_DIR, "") or "").strip()
+
+
+def conformance_ring() -> int:
+    return max(0, get_int(CONFORMANCE_RING, DEFAULT_CONFORMANCE_RING))
+
+
+def negotiation_group_size() -> int:
+    return max(1, get_int(NEGOTIATION_GROUP_SIZE,
+                          DEFAULT_NEGOTIATION_GROUP_SIZE))
+
+
+def hier_negotiation_enabled(world_size: int) -> bool:
+    """Whether a service of ``world_size`` members runs the two-level
+    exchange: ``auto`` (default) past one leader group, ``1`` whenever the
+    world has two members or more, ``0`` never."""
+    val = (get(HIER_NEGOTIATION, "auto") or "auto").strip().lower()
+    if val in ("1", "true", "yes", "on"):
+        return world_size > 1
+    if val in ("0", "false", "no", "off"):
+        return False
+    return world_size > negotiation_group_size()
+
+
+def response_cache_capacity(world_size: int | None = None) -> int:
+    """``HVD_RESPONSE_CACHE``: ``auto`` (default) is on at the default
+    capacity where the hierarchical exchange runs for ``world_size`` (off
+    for ``None``), ``0`` off, ``1`` on at the default capacity, a larger
+    value on with that many entries."""
+    raw = (get(RESPONSE_CACHE, "auto") or "auto").strip().lower()
+    if raw in ("auto", ""):
+        if world_size is not None and hier_negotiation_enabled(world_size):
+            return DEFAULT_RESPONSE_CACHE_CAPACITY
+        return 0
+    try:
+        v = int(raw)
+    except ValueError:
+        v = 0
+    if v <= 0:
+        return 0
+    return DEFAULT_RESPONSE_CACHE_CAPACITY if v == 1 else v

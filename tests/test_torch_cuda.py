@@ -958,3 +958,113 @@ def test_cuda_nccl_world4_moe_twin_negotiated(four_cards, tmp_path):
                         kv=True)
     assert "MoE: 4 experts over 4 ranks" in logs[0] and "OK" in logs[0]
     print(logs[0])
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_response_cache(four_cards, tmp_path):
+    """Four cards under the KV service with ``HVD_RESPONSE_CACHE=1``: the
+    served-traffic loop of ``test_torch_negotiation._cache_loop`` (named
+    allreduces and broadcasts served from the cache, interleaved with
+    negotiated allgathers, waited for in another order on each rank)
+    gives the numpy results; served calls take no busy round; every
+    rank's conformance trace diffs clean with ``tools.hvdtrace``. Prints
+    the time of a served named allreduce against an unnegotiated one."""
+    import json
+    import subprocess
+    import sys
+
+    from test_torch_negotiation import CACHE_ITERS, CACHE_ROOT, cache_inputs
+    from test_torch_world2 import REPO, run_world
+    env = {"HVD_RESPONSE_CACHE": "1", "HVD_CONFORMANCE": "1",
+           "HVD_CONFORMANCE_DIR": str(tmp_path / "traces")}
+    ranks = run_world("_cache_rank_on_card", tmp_path, size=4,
+                      module="test_torch_negotiation", env=env, kv=True)
+    for it in range(CACHE_ITERS):
+        x = cache_inputs(4, it)
+        want = {"a": sum(x["a"]), "g": np.concatenate(x["g"]),
+                "b": x["b"][CACHE_ROOT], "c": sum(x["c"]) / 4}
+        for res in ranks:
+            for k, v in want.items():
+                np.testing.assert_array_equal(res[f"{k}{it}"], v)
+    for r, res in enumerate(ranks):
+        assert res["served"].tolist() == [0, 0] + [3] * (CACHE_ITERS - 2)
+        assert float(res["served_rounds"]) == 0.0
+        np.testing.assert_array_equal(res["served_sum"], np.full(4, 4.0))
+        print(f"rank {r}: served named allreduce of 256 KiB "
+              f"{float(res['served_ms']):.3f} ms a call (0 rounds), "
+              f"unnegotiated {float(res['plain_ms']):.3f} ms; loop busy "
+              f"rounds a step {res['rounds'].tolist()}; "
+              f"{json.loads(str(res['stats']))}")
+    out = subprocess.run([sys.executable, "-m", "tools.hvdtrace",
+                          str(tmp_path / "traces")], cwd=REPO,
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0 and "clean (4 traces" in out.stdout, (
+        out.stdout + out.stderr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [None, "2"], ids=["flat", "g2"])
+def test_cuda_nccl_world4_hier_negotiation_trainer(four_cards, group,
+                                                   tmp_path):
+    """The negotiated trainer of :func:`test_cuda_nccl_world4_negotiated_
+    trainer_with_join`, flat and with leader groups of two
+    (``HVD_NEGOTIATION_GROUP_SIZE=2``: member -> leader -> cross-leader ->
+    fan-down), in one call so that their step and round times compare."""
+    from test_torch_world2 import run_world
+    env = {"HVD_NEGOTIATION_GROUP_SIZE": group} if group else {}
+    ranks = run_world("_service_rank_on_card", tmp_path, size=4,
+                      module="test_torch_negotiation", env=env, kv=True)
+    for r, res in enumerate(ranks):
+        assert str(res["transport"]) == ("HierarchicalTransport" if group
+                                         else "KVTransport")
+        assert np.isfinite(res["losses"]).all(), r
+        assert int(res["last"]) == 0, r
+        np.testing.assert_array_equal(res["checksum"], ranks[0]["checksum"])
+        print(f"{group or 'flat'} rank {r}: step {float(res['step_ms']):.2f}"
+              f" ms under the service, {float(res['rounds_per_step']):.1f} "
+              f"busy rounds a step of {float(res['round_ms']):.2f} ms")
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_watchdog_names_a_dead_rank(four_cards, tmp_path):
+    """Rank 1 of four exits at its sixth negotiated call
+    (``HVD_FAULT_SPEC``); the three others raise ``PeerFailureError``
+    naming it within ``HVD_HEALTH_TIMEOUT`` + 5 s."""
+    from test_torch_world2 import run_world
+    env = {"HVD_FAULT_SPEC": "svc.submit:crash:rank=1:after=5",
+           "HVD_HEALTH_INTERVAL": "0.5", "HVD_HEALTH_TIMEOUT": "3"}
+    ranks = run_world("_watchdog_rank_on_card", tmp_path, size=4,
+                      module="test_torch_negotiation", env=env, kv=True,
+                      exit_codes={1: 1})
+    for r in (0, 2, 3):
+        res = ranks[r]
+        assert (int(res["failed_at"]), int(res["dead_rank"])) == (5, 1)
+        assert float(res["seconds"]) < 8.0
+        print(f"rank {r}: {str(res['error'])} after "
+              f"{float(res['seconds']):.2f} s")
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_timeline_files(four_cards, tmp_path):
+    """``HVD_TIMELINE`` at four cards: one file a rank, each with a
+    NEGOTIATE range and an op range for every named collective."""
+    import json
+
+    from test_torch_negotiation import TIMELINE_NAMES
+    from test_torch_world2 import run_world
+    env = {"HVD_TIMELINE": str(tmp_path / "tl.json")}
+    run_world("_timeline_rank_on_card", tmp_path, size=4,
+              module="test_torch_negotiation", env=env, kv=True)
+    for r in range(4):
+        events = json.loads((tmp_path / f"tl.json.{r}").read_text())
+        lanes: dict = {}
+        for e in events:
+            if e["ph"] in ("B", "E"):
+                lanes.setdefault(e["cat"], []).append(e["name"])
+        for name in TIMELINE_NAMES:
+            assert lanes[f"{name}.0"] == ["NEGOTIATE"] * 2, (r, lanes)
+            assert lanes[name] == ["ALLREDUCE"] * 2, (r, lanes)
+        spans = {name: [e["ts"] for e in events if e.get("cat") == name]
+                 for name in TIMELINE_NAMES}
+        print(f"rank {r}: allreduce issue ranges (us) "
+              f"{ {n: t[1] - t[0] for n, t in spans.items()} }")

@@ -2,6 +2,7 @@
 never reach a CUDA kernel."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -15,7 +16,7 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 PORT_FILES = sorted((REPO / "horovod_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "convnet_host_probe.py",
-    REPO / "trainer_turns.py"]
+    REPO / "trainer_turns.py", REPO / "timeline_turns.py"]
 
 
 def _imported_modules(path: Path):
@@ -40,6 +41,46 @@ SLICE7 = ["parallel/moe.py", "parallel/pipeline.py", "parallel/mesh.py",
 # The modules of the Adasum and negotiation slice.
 SLICE8 = ["ops/adasum.py", "runner/__init__.py", "runner/http_kv.py",
           "utils/retry.py", "_native.py", "dynamic.py", "engine_service.py"]
+
+
+# The modules of the negotiation control plane and observability slice.
+SLICE9 = ["utils/envs.py", "exceptions.py", "metrics.py", "utils/faults.py",
+          "utils/retry.py", "timeline.py", "conformance.py", "health.py",
+          "negotiation/__init__.py", "negotiation/layout.py",
+          "negotiation/response_cache.py", "negotiation/hierarchy.py",
+          "engine_service.py", "ops/collectives.py", "runner/http_kv.py",
+          "__init__.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE9)
+def test_slice9_module_is_a_port_file(rel):
+    path = REPO / "horovod_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+
+
+def test_slice9_import_starts_nothing_and_leaves_jax_out(tmp_path):
+    """Importing the observability modules imports no JAX, builds no
+    engine, starts no thread, opens no server and writes no file."""
+    code = ("import sys, threading, horovod_tpu_torch._native as n; "
+            "n.BUILD_DIR = __import__('pathlib').Path(sys.argv[1]); "
+            "import horovod_tpu_torch, horovod_tpu_torch.metrics as m, "
+            "horovod_tpu_torch.timeline as t, "
+            "horovod_tpu_torch.conformance, horovod_tpu_torch.health, "
+            "horovod_tpu_torch.negotiation, horovod_tpu_torch.utils.faults; "
+            "bad = sorted(x for x in sys.modules if x.split('.')[0] in "
+            f"{FORBIDDEN!r}); built = list(n.BUILD_DIR.glob('*')); "
+            "extra = [th.name for th in threading.enumerate() "
+            "if th is not threading.main_thread()]; "
+            "print(bad, built, extra, m._server, t._engine); "
+            "sys.exit(1 if bad or built or extra or m._server is not None "
+            "or t._engine is not None else 0)")
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path / "b")],
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=120, env={**os.environ,
+                                           "PYTHONPATH": str(REPO)})
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert list(tmp_path.iterdir()) == []
 
 
 @pytest.mark.parametrize("rel", SLICE8)
@@ -114,7 +155,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             "horovod_tpu_torch.ops.hierarchical, "
             "horovod_tpu_torch.ops.adasum, horovod_tpu_torch.dynamic, "
             "horovod_tpu_torch.engine_service, "
-            "horovod_tpu_torch.runner.http_kv; "
+            "horovod_tpu_torch.runner.http_kv, horovod_tpu_torch.metrics, "
+            "horovod_tpu_torch.timeline, horovod_tpu_torch.health, "
+            "horovod_tpu_torch.conformance, horovod_tpu_torch.negotiation, "
+            "horovod_tpu_torch.utils.faults; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -584,6 +584,7 @@ def _service_rank_on_card(out_path: str) -> None:
         out["round_ms"] = ((svc.round_seconds - seconds0)
                            / max(svc.rounds - rounds0, 1) * 1e3)
         out["buckets"] = len(opt.stats["bucket_bytes"])
+        out["transport"] = type(svc.transport).__name__
         losses += [step(100 * r + 50 + i) for i in range(CARD_STEPS[r])]
         out["losses"] = losses
         last = hvd.join()
@@ -591,6 +592,177 @@ def _service_rank_on_card(out_path: str) -> None:
         hvd.broadcast_parameters(model.state_dict(), root_rank=last)
         out["checksum"] = [float(p.double().sum()) for p in
                            model.parameters()]
+        np.savez(out_path, **{k: np.asarray(v) for k, v in out.items()})
+    finally:
+        hvd.shutdown()
+
+
+# --------------------------------------------------------------------------
+# the rank side of tests/test_torch_negotiation_cache.py and
+# tests/test_torch_observability.py (and of their card tests): the
+# coordinator ResponseCache, the health watchdog and the timeline
+# --------------------------------------------------------------------------
+
+CACHE_ITERS = 6  # iterations of the served-traffic loop
+CACHE_ROOT = 1  # the named broadcast's root
+WATCHDOG_CALLS = 12  # named allreduces each rank tries; rank 1 dies at 6
+TIMELINE_NAMES = ("loss", "acc", "grads")
+
+
+def cache_inputs(n: int, it: int) -> dict:
+    """Iteration ``it``'s per-rank inputs of the served-traffic loop:
+    integer-valued float32, the average's multiples of 4, so that every
+    result of a world of 2 or 4 is exact."""
+    rng = np.random.default_rng(4000 + it)
+    ints = lambda shape: rng.integers(-8, 8, shape).astype(  # noqa: E731
+        np.float32)
+    return {"a": [ints((5,)) for _ in range(n)],
+            "g": [ints((r + 1, 3)) for r in range(n)],
+            "b": [ints((2, 2)) for _ in range(n)],
+            "c": [4 * ints((3,)) for _ in range(n)]}
+
+
+def _cache_loop(hvd, out: dict) -> None:
+    """The served-traffic loop: each iteration submits a named allreduce
+    ``loss`` (SUM), an auto-named allgather (never cached), a named
+    broadcast ``b`` from ``CACHE_ROOT`` and a named AVERAGE ``c``, all
+    async, and waits for them in an order of its own (rotated by rank).
+    After two iterations ``loss``, ``b`` and ``c`` are served from the
+    cache, so they are issued by their place in the submission order
+    while the allgather's plan arrives whenever it does."""
+    import json
+
+    from horovod_tpu_torch import engine_service
+
+    r, n, dev = hvd.rank(), hvd.size(), hvd.device()
+    svc = engine_service.get_service()
+    served, rounds = [], []
+    for it in range(CACHE_ITERS):
+        x = cache_inputs(n, it)
+        t = lambda k: torch.from_numpy(x[k][r]).to(dev)  # noqa: E731
+        hits = hvd.response_cache_stats()["global"]["hits"]
+        rounds0 = svc.rounds
+        handles = {
+            "a": hvd.allreduce_async(t("a"), name="loss", op=hvd.Sum),
+            "g": hvd.allgather_async(t("g")),
+            "b": hvd.broadcast_async(t("b"), root_rank=CACHE_ROOT,
+                                     name="b"),
+            "c": hvd.allreduce_async(t("c"), name="c")}
+        keys = list(handles)
+        for k in keys[r % 4:] + keys[:r % 4]:
+            out[f"{k}{it}"] = handles[k].synchronize().cpu().numpy()
+        served.append(hvd.response_cache_stats()["global"]["hits"] - hits)
+        rounds.append(svc.rounds - rounds0)
+    out["served"] = served
+    out["rounds"] = rounds
+    out["stats"] = json.dumps(hvd.response_cache_stats())
+    out["transport"] = type(svc.transport).__name__
+
+
+def _cache_rank(out_path: str) -> None:
+    """One rank of :func:`_cache_loop` on the CPU."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init(device="cpu")
+    try:
+        out = {}
+        _cache_loop(hvd, out)
+        np.savez(out_path, **{k: np.asarray(v) for k, v in out.items()})
+    finally:
+        hvd.shutdown()
+
+
+CARD_CALLS = 50  # timed allreduces of each kind on the card
+
+
+def _cache_rank_on_card(out_path: str) -> None:
+    """:func:`_cache_loop` over NCCL, then ``CARD_CALLS`` named allreduces
+    of 256 KiB served from the cache (their busy rounds counted) timed
+    against as many unnegotiated ones (``HVD_DYNAMIC_ENGINE=0``)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import engine_service
+
+    hvd.init()
+    try:
+        out, dev = {}, hvd.device()
+        _cache_loop(hvd, out)
+        svc = engine_service.get_service()
+        x = torch.ones(1 << 16, device=dev)
+
+        def timed(name):
+            for _ in range(3):  # the first two negotiate: confirmation
+                hvd.allreduce(x, name=name, op=hvd.Sum)
+            torch.cuda.synchronize()
+            rounds0 = svc.rounds
+            t0 = time.perf_counter()
+            for _ in range(CARD_CALLS):
+                y = hvd.allreduce(x, name=name, op=hvd.Sum)
+            torch.cuda.synchronize()
+            return ((time.perf_counter() - t0) / CARD_CALLS * 1e3,
+                    (svc.rounds - rounds0) / CARD_CALLS, y)
+
+        out["served_ms"], out["served_rounds"], y = timed("steady")
+        out["served_sum"] = y.cpu().numpy()[:4]
+        os.environ["HVD_DYNAMIC_ENGINE"] = "0"
+        out["plain_ms"], _, _ = timed(None)
+        del os.environ["HVD_DYNAMIC_ENGINE"]
+        np.savez(out_path, **{k: np.asarray(v) for k, v in out.items()})
+    finally:
+        hvd.shutdown()
+
+
+def _watchdog_rank(out_path: str, device: str | None = "cpu") -> None:
+    """Named allreduces in a loop; ``HVD_FAULT_SPEC`` kills rank 1 at its
+    sixth negotiated call. The others save which call failed, how, and
+    how long after it began. On the card a survivor then exits without
+    the teardown, which would wait for the dead rank's NCCL peer."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.exceptions import PeerFailureError
+
+    hvd.init(device=device)
+    out, dev = {"failed_at": -1}, hvd.device()
+    try:
+        for i in range(WATCHDOG_CALLS):
+            t0 = time.monotonic()
+            try:
+                hvd.allreduce(torch.ones(4, device=dev), name=f"w{i}",
+                              op=hvd.Sum)
+            except PeerFailureError as e:
+                out.update(failed_at=i, dead_rank=e.rank,
+                           seconds=time.monotonic() - t0, error=str(e))
+                break
+        np.savez(out_path, **{k: np.asarray(v) for k, v in out.items()})
+    finally:
+        if dev.type == "cuda":
+            os._exit(0)
+        hvd.shutdown()
+
+
+def _watchdog_rank_on_card(out_path: str) -> None:
+    _watchdog_rank(out_path, device=None)
+
+
+def _timeline_rank_on_card(out_path: str) -> None:
+    _timeline_rank(out_path, device=None)
+
+
+def _timeline_rank(out_path: str, device: str | None = "cpu") -> None:
+    """Named collectives under ``HVD_TIMELINE``: an allreduce of each of
+    ``TIMELINE_NAMES``, a grouped allreduce and a broadcast; the file is
+    closed at exit."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import timeline
+
+    hvd.init(device=device)
+    try:
+        r, dev = hvd.rank(), hvd.device()
+        out = {"active": timeline.timeline_active()}
+        for i, name in enumerate(TIMELINE_NAMES):
+            out[name] = hvd.allreduce(torch.full((3,), float(r + i),
+                                                 device=dev),
+                                      name=name, op=hvd.Sum).cpu().numpy()
+        hvd.grouped_allreduce([torch.ones(2, device=dev)] * 2, name="grp")
+        hvd.broadcast(torch.ones(2, device=dev), root_rank=0, name="bc")
         np.savez(out_path, **{k: np.asarray(v) for k, v in out.items()})
     finally:
         hvd.shutdown()

@@ -390,7 +390,9 @@ def _flight_records(trace_dir: Path) -> str:
 
 
 def spawn_world(argv_of, size: int, env: dict | None = None,
-                trace_dir: Path | None = None, kv: bool = False) -> list:
+                trace_dir: Path | None = None, kv: bool = False,
+                timeout_s: float = TIMEOUT_S,
+                exit_codes: dict | None = None) -> list:
     """Run the command ``argv_of(rank)`` in each rank of one world of
     ``size`` processes, with the environment a launcher sets (a free local
     port, ``LOCAL_RANK`` = rank; ``env`` adds to it, e.g. a
@@ -403,7 +405,9 @@ def spawn_world(argv_of, size: int, env: dict | None = None,
     (``PYTHONFAULTHANDLER``). With ``kv`` a KV server of the port runs in
     this process for the world's negotiation service, on a port the OS
     picks, and every rank gets ``HVD_KV_ADDR``, ``HVD_KV_PORT`` and
-    ``HVD_SECRET_KEY``, as a launcher sets them."""
+    ``HVD_SECRET_KEY``, as a launcher sets them. ``timeout_s`` bounds the
+    whole world's run; ``exit_codes`` names ranks expected to exit with
+    another code than 0 (a rank a test crashes on purpose)."""
     port = _free_port()
     server = None
     kv_env = {}
@@ -442,10 +446,12 @@ def spawn_world(argv_of, size: int, env: dict | None = None,
             argv_of(rank), env=rank_env, cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     logs, hung = [], False
+    deadline = time.monotonic() + timeout_s
     try:
         for p in procs:
             try:
-                logs.append(p.communicate(timeout=TIMEOUT_S)[0])
+                logs.append(p.communicate(timeout=max(
+                    deadline - time.monotonic(), 1.0))[0])
             except subprocess.TimeoutExpired:
                 hung = True
                 for q in procs:
@@ -459,12 +465,13 @@ def spawn_world(argv_of, size: int, env: dict | None = None,
                 p.wait()
         if server is not None:
             server.stop()
-    failed = hung or any(p.returncode != 0 for p in procs)
+    want = [(exit_codes or {}).get(rank, 0) for rank in range(size)]
+    failed = hung or any(p.returncode != w for p, w in zip(procs, want))
     records = _flight_records(trace_dir) if failed else ""
     if own_dir:
         shutil.rmtree(trace_dir, ignore_errors=True)
     for rank, (p, log) in enumerate(zip(procs, logs)):
-        assert not hung and p.returncode == 0, (
+        assert not hung and p.returncode == want[rank], (
             f"rank {rank} {'hung' if hung else 'failed'}:\n{log}\n"
             + "\n".join(f"--- rank {r}:\n{other[-4000:]}"
                         for r, other in enumerate(logs) if r != rank)
@@ -474,17 +481,24 @@ def spawn_world(argv_of, size: int, env: dict | None = None,
 
 def run_world(rank_main: str, tmp: Path, size: int = 2,
               module: str = "test_torch_world2",
-              env: dict | None = None, kv: bool = False) -> list:
+              env: dict | None = None, kv: bool = False,
+              timeout_s: float = TIMEOUT_S,
+              exit_codes: dict | None = None) -> list:
     """Run ``rank_main(out_path)``, a function of the JAX-free test module
     ``module``, in each rank of one world of ``size`` processes (gloo, or
     NCCL where ``rank_main`` starts one), with ``env`` added to each rank's
     environment and, with ``kv``, a KV server for the negotiation service
-    (:func:`spawn_world`); returns each rank's saved arrays."""
+    (:func:`spawn_world`, which also takes ``timeout_s`` and
+    ``exit_codes``); returns each rank's saved arrays (None for a rank of
+    ``exit_codes`` that saved none)."""
     code = f"import sys, {module} as w; w.{rank_main}(sys.argv[1])"
     spawn_world(lambda rank: [sys.executable, "-c", code,
                               str(tmp / f"rank{rank}.npz")], size, env=env,
-                trace_dir=tmp / "nccl_trace", kv=kv)
-    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(size)]
+                trace_dir=tmp / "nccl_trace", kv=kv, timeout_s=timeout_s,
+                exit_codes=exit_codes)
+    return [None if r in (exit_codes or {})
+            and not (tmp / f"rank{r}.npz").exists()
+            else dict(np.load(tmp / f"rank{r}.npz")) for r in range(size)]
 
 
 @pytest.fixture(scope="module")
