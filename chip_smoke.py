@@ -78,6 +78,20 @@ Phases, each of which exits non-zero on failure:
    (the rounds a call before and after, the hits and misses, a round's
    time); ``metrics_dump()`` must hold every busy round in its round
    histogram;
+7d. fusion: K1-K3 against their plain versions at the trainer's shape
+   once more; then the trainer (as in 6, its gradients kept in place by
+   ``zero_grad(set_to_none=False)``) through the fusion cycle and its
+   pipelined executor, twice (the eager path's spread against itself),
+   then with ``HVD_STEP_CAPTURE=1``: step 1 records and steps 2-5 each
+   replay one CUDA Graph of the step's sync (pack, NCCL, unpack), with no
+   divergence, and the parameters after the steps must equal the eager
+   run's bit for bit (or, were the eager run not bitwise equal to itself,
+   lie within its own spread); every kernel ``num_layers x steps``
+   launches a run; flushes by trigger and the executor's counters. Then
+   the captured trainer's step with capture off and on in turns
+   (``FUSION_TURNS`` pairs), one profiled step under capture, and
+   ResNet-50's ``synchronize()`` alone (161 gradients, bf16) with capture
+   off and on in turns, in host ms and CUDA-event ms a call;
 8. pipeline: the pipeline twin (``examples/pipeline_train.py --model
    full``: vocab 32000, d_model 512, hidden 2048, 4 residual-MLP blocks, 8
    x 2048 tokens, bf16) at pp 1 with 4 microbatches for 5 steps: the loss
@@ -124,8 +138,9 @@ object (each run's step time, tokens/s, peak memory, losses and buckets,
 with the per-step count of buckets started during the backward pass), a
 ``{"moe": ..., "pipeline": ...}`` one, one ``{"kernels": [...]}`` JSON
 object (each kernel's launches on the trainer's, the k=2 run's, the
-Adasum run's, the negotiation phase's and the MoE run's main path),
-preceded by ``{"adasum": ...}`` and ``{"negotiation": ...}``,
+Adasum run's, the negotiation phase's, the fusion phase's and the MoE
+run's main path), preceded by ``{"adasum": ...}``, ``{"negotiation":
+...}`` and ``{"fusion": ...}``,
 the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -454,6 +469,35 @@ def phase_tile_edges(dev) -> dict:
     return worst
 
 
+def hold_training_kernels(g, dev, where: str):
+    """K1, K2 and K3 at the trainer's shape (bh 64, s 2048, d 64, bf16,
+    causal) against their plain versions on the same inputs, within
+    ``TRAINING_LIMITS``: the errors, and the inputs."""
+    from horovod_tpu_torch.ops import flash
+    bh, s, d, dtype = BATCH * 8, SEQ, 64, torch.bfloat16
+    q, k, v, carries, lse, dout, D = _block_inputs(g, dev, dtype, bh, s, s,
+                                                   d, 0, 0, True)
+    args = (q, k, v, lse, dout, D, 0, 0, True)
+    fwd_k = flash.block_attend(q, k, v, 0, 0, True, *carries)
+    fwd_p = flash.attend_plain(q, k, v, 0, 0, True, *carries)
+    errs = {"flash_fwd": _fwd_errs(fwd_k, fwd_p)}
+    del fwd_k, fwd_p
+    dq, dq_p = flash._launch_bwd_dq(*args), flash.plain_bwd_dq(*args)
+    errs["flash_bwd_dq"] = {"abs": (dq - dq_p).abs().max().item(),
+                            **_dq_errs(dq, dq_p, s, s, 0, 0, True)}
+    del dq, dq_p
+    got, want = flash._launch_bwd_dkv(*args), flash.plain_bwd_dkv(*args)
+    errs["flash_bwd_dkv"] = {"abs": _max_err(got, want),
+                             **_dkv_errs(got, want)}
+    del got, want
+    torch.cuda.synchronize()
+    where = f"{where} bh={bh} s={s} d={d} bf16 causal"
+    failed = [f for n, e in errs.items() for f in _failures(n, e, where)]
+    require(not failed, f"kernels disagree with their plain versions: "
+            f"{failed}")
+    return errs, (q, k, v, carries, lse, dout, D)
+
+
 def phase_kernels(dev):
     from horovod_tpu_torch.ops import flash
     g = torch.Generator(device=dev).manual_seed(1)
@@ -479,26 +523,9 @@ def phase_kernels(dev):
 
     # the training shape
     bh, s, d, dtype = BATCH * 8, SEQ, 64, torch.bfloat16
-    q, k, v, carries, lse, dout, D = _block_inputs(g, dev, dtype, bh, s, s,
-                                                   d, 0, 0, True)
+    errs, (q, k, v, carries, lse, dout, D) = hold_training_kernels(
+        g, dev, "kernels")
     args = (q, k, v, lse, dout, D, 0, 0, True)
-    fwd_k = flash.block_attend(q, k, v, 0, 0, True, *carries)
-    fwd_p = flash.attend_plain(q, k, v, 0, 0, True, *carries)
-    errs = {"flash_fwd": _fwd_errs(fwd_k, fwd_p)}
-    del fwd_k, fwd_p
-    dq, dq_p = flash._launch_bwd_dq(*args), flash.plain_bwd_dq(*args)
-    errs["flash_bwd_dq"] = {"abs": (dq - dq_p).abs().max().item(),
-                            **_dq_errs(dq, dq_p, s, s, 0, 0, True)}
-    del dq, dq_p
-    got, want = flash._launch_bwd_dkv(*args), flash.plain_bwd_dkv(*args)
-    errs["flash_bwd_dkv"] = {"abs": _max_err(got, want),
-                             **_dkv_errs(got, want)}
-    del got, want
-    torch.cuda.synchronize()
-    where = f"kernels bh={bh} s={s} d={d} bf16 causal"
-    failed = [f for n, e in errs.items() for f in _failures(n, e, where)]
-    require(not failed, f"kernels disagree with their plain versions: "
-            f"{failed}")
 
     times = {
         "flash_fwd": (lambda: flash._launch_fwd(q, k, v, 0, 0, True,
@@ -1279,6 +1306,222 @@ def phase_negotiation(dev) -> tuple[dict, dict]:
     return out, launches
 
 
+FUSION_TURNS = 3  # capture off/on pairs of the trainer's step, in turns
+SYNC_REPS = 20  # synchronize() calls a turn of the ResNet-50 sync
+
+
+def _fusion_trainer(dev, capture: bool) -> dict:
+    """The trainer through the fusion cycle and its pipelined executor
+    (``capture`` off), or under step capture: full width, bf16, ulysses,
+    8 x 2048 tokens, ``DistributedOptimizer(Adam)`` with its gradients
+    kept in place (``zero_grad(set_to_none=False)``), STEPS steps from the
+    trainer phase's seed. Returns the model, the optimizer, the parameters
+    after the steps, the losses and step times, the K1-K3 launches and
+    ``fusion_stats()``."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import (TransformerConfig, TransformerLM,
+                                          lm_loss)
+    from horovod_tpu_torch.ops import dispatch_cache, flash, fusion_cycle
+    os.environ["HVD_STEP_CAPTURE"] = "1" if capture else "0"
+    fusion_cycle.reset()
+    dispatch_cache.reset()
+    cfg = TransformerConfig(attn_mode="ulysses")
+    model = TransformerLM(cfg, device=dev)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-3))
+    tokens = torch.from_numpy(
+        synthetic_tokens(BATCH, SEQ, cfg.vocab_size, 0)).to(dev)
+
+    def step() -> float:
+        opt.zero_grad(set_to_none=False)
+        loss = lm_loss(model(tokens), tokens)
+        with torch.profiler.record_function("backward"):
+            loss.backward()
+        opt.step()
+        return loss.item()
+
+    torch.cuda.synchronize()
+    flash.reset_launch_counts()
+    losses, step_s = [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(flash.launches)
+    params = [p.detach().clone() for p in model.parameters()]
+    return {"model": model, "opt": opt, "step": step, "params": params,
+            "losses": losses, "step_s": step_s, "launches": launches,
+            "stats": hvd.fusion_stats(), "layers": cfg.num_layers}
+
+
+def _params_diff(a, b) -> float:
+    return max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(a, b))
+
+
+def _sync_turns(opt, turns) -> dict:
+    """``synchronize()`` alone, again and again (:func:`_sync_again`),
+    with capture off and on as ``turns`` says: each turn's host ms a call
+    (the issue, no device wait) and CUDA-event ms a call."""
+    out = {"off": {"host_ms": [], "event_ms": []},
+           "on": {"host_ms": [], "event_ms": []}}
+    for turn in turns:
+        os.environ["HVD_STEP_CAPTURE"] = "1" if turn == "on" else "0"
+        for _ in range(3):
+            _sync_again(opt)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        host = 0.0
+        start.record()
+        for _ in range(SYNC_REPS):
+            t0 = time.perf_counter()
+            _sync_again(opt)
+            host += time.perf_counter() - t0
+        end.record()
+        torch.cuda.synchronize()
+        out[turn]["host_ms"].append(host * 1e3 / SYNC_REPS)
+        out[turn]["event_ms"].append(start.elapsed_time(end) / SYNC_REPS)
+    return out
+
+
+def phase_fusion(dev):
+    """The fusion and plan machinery on the trainer's path. The trainer
+    through the fusion cycle and its pipelined executor, twice (the eager
+    path's own run-to-run spread), then under step capture: the first
+    step records, every later one replays one CUDA Graph of the step's
+    sync with no divergence, and the parameters equal the eager run's.
+    Then the captured trainer's step with capture off and on in turns, and
+    ResNet-50's ``synchronize()`` alone (161 gradients) off and on in
+    turns. K1-K3 are held against their plain versions at the path's
+    shape first."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import models
+    from horovod_tpu_torch.ops import fusion_cycle
+    hvd.init()
+    require(hvd.size() == 1 and hvd.device() == dev, "init(): not world 1")
+    g = torch.Generator(device=dev).manual_seed(2)
+    errs, _ = hold_training_kernels(g, dev, "fusion")
+    del _
+    prior = os.environ.get("HVD_STEP_CAPTURE")
+    try:
+        runs = {}
+        for name, capture in (("cycle", False), ("cycle_again", False),
+                              ("capture", True)):
+            runs[name] = _fusion_trainer(dev, capture)
+            if name != "capture":
+                del runs[name]["model"], runs[name]["opt"]
+        cyc, again, cap = runs["cycle"], runs["cycle_again"], runs["capture"]
+        spread = _params_diff(cyc["params"], again["params"])
+        diff = _params_diff(cyc["params"], cap["params"])
+        st, cst = cyc["stats"], cap["stats"]["capture"]
+        # the captured trainer's step, capture off and on in turns
+        step_turns = {"off": [], "on": []}
+        for turn in ["off", "on"] * FUSION_TURNS:
+            os.environ["HVD_STEP_CAPTURE"] = "1" if turn == "on" else "0"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cap["step"]()
+            torch.cuda.synchronize()
+            step_turns[turn].append((time.perf_counter() - t0) * 1e3)
+        turns_stats = hvd.fusion_stats()["capture"]
+        profile = _profile_step(cap["step"])  # under capture (env is on)
+        del cap["model"], cap["opt"], cap["step"]
+        torch.cuda.empty_cache()
+        # ResNet-50's sync alone
+        fusion_cycle.reset()
+        torch.backends.cudnn.benchmark = True
+        model = models.ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                                device=dev,
+                                generator=torch.Generator().manual_seed(0))
+        model.train()
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9))
+        x = torch.randn(32, 3, 224, 224, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+        y = torch.randint(0, 1000, (32,), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(4))
+        os.environ["HVD_STEP_CAPTURE"] = "0"
+        opt.zero_grad(set_to_none=False)
+        torch.nn.functional.cross_entropy(model(x), y).backward()
+        opt.synchronize()
+        n_grads = sum(1 for p in model.parameters() if p.grad is not None)
+        sync = _sync_turns(opt, ["off", "on", "on", "off", "off", "on"])
+        sync_stats = hvd.fusion_stats()["capture"]
+        del model, opt, x, y
+    finally:
+        if prior is None:
+            os.environ.pop("HVD_STEP_CAPTURE", None)
+        else:
+            os.environ["HVD_STEP_CAPTURE"] = prior
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    steady = lambda r: sum(r["step_s"][1:]) / (STEPS - 1) * 1e3  # noqa: E731
+    want = cyc["layers"] * STEPS
+    print(f"[fusion] trainer through the fusion cycle (pipelined executor, "
+          f"{st['pipeline']['max_inflight']} slots): step "
+          f"{steady(cyc):.1f} ms (mean of steps 2-{STEPS}), losses "
+          f"{['%.4f' % x for x in cyc['losses']]}; flushes by trigger "
+          f"{ {k: v for k, v in st['flushes'].items() if v} }, executor "
+          f"submitted {st['pipeline']['submitted']}, inflight peak "
+          f"{st['pipeline']['inflight_peak']}, slot waits "
+          f"{st['pipeline']['slot_waits']}")
+    print(f"[fusion] trainer under capture: step {steady(cap):.1f} ms "
+          f"(mean of steps 2-{STEPS}, the capturing step 2 included; the "
+          f"replays of steps 3-{STEPS} "
+          f"{sum(cap['step_s'][2:]) / (STEPS - 2) * 1e3:.1f} ms); "
+          f"recorded {cst['recorded_steps']}, replayed "
+          f"{cst['replayed_steps']}, fallbacks {cst['fallbacks']}, graph "
+          f"launches {cst['graph_launches']}; parameters after {STEPS} "
+          f"steps against the eager run: max abs {diff:.3g} (the eager "
+          f"run against itself: {spread:.3g})")
+    print(f"[fusion] step in turns, capture off "
+          f"{['%.1f' % x for x in step_turns['off']]} ms, on "
+          f"{['%.1f' % x for x in step_turns['on']]} ms; fallbacks over "
+          f"the turns {turns_stats['fallbacks']}")
+    print(f"[fusion] ResNet-50 synchronize() alone, {n_grads} gradients, "
+          f"{SYNC_REPS} calls a turn: capture off host "
+          f"{['%.3f' % x for x in sync['off']['host_ms']]} ms, event "
+          f"{['%.3f' % x for x in sync['off']['event_ms']]} ms; capture on "
+          f"host {['%.3f' % x for x in sync['on']['host_ms']]} ms, event "
+          f"{['%.3f' % x for x in sync['on']['event_ms']]} ms; fallbacks "
+          f"{sync_stats['fallbacks']}, graph launches "
+          f"{sync_stats['graph_launches']}")
+    require(all(math.isfinite(x) for x in cyc["losses"] + cap["losses"]),
+            "fusion: loss is not finite")
+    require(cyc["losses"][-1] < cyc["losses"][0], "fusion: loss did not fall")
+    for r in (cyc, cap):
+        require(all(v == want for v in r["launches"].values()),
+                f"fusion: launch counts {r['launches']}, want {want} each")
+    require(cst["recorded_steps"] == 1 and cst["replayed_steps"] == STEPS - 1
+            and cst["fallbacks"] == 0
+            and cst["graph_launches"] == STEPS - 1,
+            f"fusion: capture {cst}, want 1 recorded and {STEPS - 1} "
+            "replays of the graph, none diverged")
+    require(diff == 0.0 or (spread > 0.0 and diff <= spread),
+            f"fusion: parameters under capture off by {diff:.3g} from the "
+            f"eager run, whose own spread is {spread:.3g}")
+    require(turns_stats["fallbacks"] == 0 and sync_stats["fallbacks"] == 0,
+            "fusion: a replay diverged in the turns")
+    require(n_grads == 161, f"fusion: ResNet-50 has {n_grads} gradients")
+    launches = {name: {"cycle": cyc["launches"][name],
+                       "capture": cap["launches"][name]}
+                for name in cyc["launches"]}
+    return {"step_ms": {"cycle": steady(cyc), "capture": steady(cap)},
+            "replay_step_ms": sum(cap["step_s"][2:]) / (STEPS - 2) * 1e3,
+            "losses": {"cycle": cyc["losses"], "capture": cap["losses"]},
+            "step_s": {"cycle": cyc["step_s"], "capture": cap["step_s"]},
+            "flushes": {k: v for k, v in st["flushes"].items() if v},
+            "pipeline": st["pipeline"], "capture": cst,
+            "params_vs_eager_max_abs": diff,
+            "eager_spread_max_abs": spread,
+            "step_turns_ms": step_turns, "profile": profile,
+            "resnet50_sync": {"gradients": n_grads, **sync},
+            "kernel_errors": errs}, launches
+
+
+
 def phase_moe(dev):
     """The MoE TransformerLM at full width with one expert at NCCL world 1:
     ``TransformerConfig(attn_mode="ulysses", moe_experts=1)``, bf16, 8 x
@@ -1906,6 +2149,7 @@ def main(argv) -> int:
     launches, k2_launches, trainer = timed("trainer", phase_trainer, dev)
     ada, ada_launches = timed("adasum", phase_adasum, dev)
     neg, neg_launches = timed("negotiation", phase_negotiation, dev)
+    fusion, fusion_launches = timed("fusion", phase_fusion, dev)
     moe, moe_launches = timed("moe", phase_moe, dev)
     pipeline = timed("pipeline", phase_pipeline, dev)
     long_ctx = timed("long context", phase_long_context)
@@ -1919,6 +2163,7 @@ def main(argv) -> int:
         row["launches_moe"] = moe_launches[name]
         row["launches_adasum"] = ada_launches[name]
         row["launches_negotiation"] = neg_launches[name]
+        row["launches_fusion"] = fusion_launches[name]
         row["launches_long_context"] = {
             mode: res["launches_per_step"][-1][name]
             for mode, res in long_ctx.items()}
@@ -1938,6 +2183,7 @@ def main(argv) -> int:
     print(json.dumps({"moe": moe, "pipeline": pipeline}))
     print(json.dumps({"adasum": ada}))
     print(json.dumps({"negotiation": neg}))
+    print(json.dumps({"fusion": fusion}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

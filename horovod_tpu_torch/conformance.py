@@ -18,9 +18,11 @@ package's, so the tool reads either package's traces unchanged.
   machine offline) but not chained: the service's lifecycle and join, and
   the cache's warm restore, confirm and drop, may differ between ranks.
 
-:data:`SITES` lists the port's decision points (its own modules; the JAX
-package's fusion, QoS, step-capture, plan-cache and checkpoint sites have
-no producer here yet). A process is a rank, so there is one recorder a
+:data:`SITES` lists the port's decision points under the JAX package's
+site names: the fusion flush composition, the QoS grant order, the step
+capture's phases, the response cache, the plan cache's builds and the
+service's lifecycle (the JAX package's elastic checkpoint sites have no
+producer here yet). A process is a rank, so there is one recorder a
 process, labelled ``rank<N>`` by its launcher rank.
 
 With ``HVD_CONFORMANCE`` unset, :func:`record` is one cached bool read.
@@ -52,6 +54,19 @@ LOCAL = "local"
 # site ("<module>.py::<qualname>", relative to the package) -> (stream,
 # event class); the reference's keys for the same decisions
 SITES = {
+    # the fusion flush composition
+    "ops/fusion_cycle.py::FusionScheduler.flush_queue":
+        ("flush", LOCKSTEP),
+    # the QoS arbiter's grant order
+    "qos.py::QosGate._grant_locked": ("qos", LOCKSTEP),
+    # step-capture phase moves, seal keys and replay completion
+    "ops/step_capture.py::CaptureState.boundary": ("capture", LOCKSTEP),
+    "ops/step_capture.py::CaptureState._seal_locked":
+        ("capture", LOCKSTEP),
+    "ops/step_capture.py::CaptureState._diverge_locked":
+        ("capture", LOCKSTEP),
+    "ops/step_capture.py::CaptureState._execute_replay":
+        ("capture", LOCKSTEP),
     # response-cache confirm flips and serve decisions
     "negotiation/response_cache.py::ResponseCache.note_response":
         ("rcache", LOCKSTEP),
@@ -70,10 +85,13 @@ SITES = {
     "engine_service.py::DynamicService._on_peer_failure":
         ("service", LOCAL),
     "engine_service.py::DynamicService.join": ("service", LOCAL),
+    # dispatch plan builds: a plan cache is a process's own
+    "ops/dispatch_cache.py::store": ("plans", LOCAL),
 }
 
 _EPOCH_STREAM = "epoch"  # knob-override epoch moves, fed by the recorder
-STREAMS = ("rcache", "service", _EPOCH_STREAM)
+STREAMS = ("flush", "qos", "capture", "rcache", "plans", "service",
+           _EPOCH_STREAM)
 
 _force_enabled: bool | None = None  # a test's override; None: the knob
 

@@ -79,6 +79,7 @@ from .exceptions import PeerFailureError, ResponseCacheJoinError
 from .negotiation import response_cache as _rcache
 from .negotiation.hierarchy import HierarchicalTransport
 from .utils import envs
+from .utils import invariants as _inv
 from .utils import faults as _faults
 from .utils import logging as hvd_logging
 
@@ -418,6 +419,22 @@ class DynamicService:
             self._queue.append(item)
         return item
 
+    def submit_step(self, requests: list[dict], issue) -> Queued:
+        """:meth:`submit` of a whole captured step's requests: one round
+        (reference ``negotiate_step``), counted in ``step_negotiations``."""
+        self.step_negotiations += 1
+        return self.submit(requests, issue)
+
+    def cancel(self, item: Queued) -> None:
+        """Drop a queued collective that will not be issued (an aborted
+        flush): it leaves the queue and its names the engine."""
+        with self._issue_lock:
+            if item in self._queue:
+                self._queue.remove(item)
+            item.issued = True
+            item.error = RuntimeError("queued collective cancelled")
+        self.negotiate_many_cancel(item.ticket)
+
     def run_until(self, item: Queued | None = None,
                   block: bool = True) -> None:
         """Issue queued collectives in the agreed order: with ``item``,
@@ -429,8 +446,11 @@ class DynamicService:
         segments of submission order. A segment's negotiated collectives
         are issued in the order of their plans' arrival, the same on every
         rank; the served collective after a segment is issued once the
-        segment is, and before the next segment."""
-        with self._issue_lock:
+        segment is, and before the next segment. An issue made here is
+        already in the agreed order: it takes the issue lock of
+        ``ops/program_issue.py`` without waiting for the fusion cycle's
+        executor, which may itself be waiting for this lock."""
+        with self._issue_lock, _inv.section("svc-issue"):
             while item is None or not item.issued:
                 head: list[Queued] = []
                 fence = None
@@ -652,6 +672,13 @@ class DynamicService:
             "engine_service.py::DynamicService._on_peer_failure",
             "svc_abort", (self.pset_key, dead_rank))
         self._fail_all(str(exc), exc)
+        # the fusion cycle's queued work cannot complete either: its
+        # handles raise at synchronize()
+        from .ops import fusion_cycle
+        aborted = fusion_cycle.abort(str(exc))
+        if aborted:
+            hvd_logging.warning(
+                "peer failure aborted %d queued async collectives", aborted)
         self._shutdown.set()
         self._tick.set()
 
@@ -904,10 +931,17 @@ def reset_service() -> None:
     """Stop every service (at ``shutdown()``); auto-generated names start
     from zero again."""
     global _generation
+    # queued work was negotiated against the services going away: it
+    # fails (its handles raise), and the plans that pinned them drop
+    from .ops import collectives, dispatch_cache, fusion_cycle
+    aborted = fusion_cycle.abort("engine service reset")
+    if aborted:
+        hvd_logging.warning("engine service reset aborted %d queued "
+                            "collective(s)", aborted)
     with _service_lock:
         for svc in _services.values():
             svc.stop()
         _services.clear()
         _generation += 1
-    from .ops import collectives
+    dispatch_cache.invalidate("engine service reset")
     collectives._auto_counters.clear()

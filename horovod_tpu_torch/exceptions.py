@@ -64,3 +64,22 @@ class HostsUpdatedInterrupt(RuntimeError):
     def __init__(self, skip_sync: bool = False):
         super().__init__("hosts updated")
         self.skip_sync = skip_sync
+
+
+class QosAdmissionError(RuntimeError):
+    """An async collective submission was shed at enqueue by its tenant's
+    QoS admission control (``hvd.set_qos(..., policy="shed")`` /
+    ``HVD_QOS_*``): the tenant's unacknowledged pending bytes would exceed
+    its quota. Raised from the submission's handle (``synchronize()``).
+    Flow control on a healthy engine, not a peer failure, so not a
+    :class:`HorovodInternalError`."""
+
+    def __init__(self, tenant: str, nbytes: int, pending: int, quota: int):
+        self.tenant = tenant
+        self.nbytes = int(nbytes)
+        self.pending = int(pending)
+        self.quota = int(quota)
+        super().__init__(
+            f"tenant {tenant!r}: submission of {nbytes} B shed by QoS "
+            f"admission control ({pending} B already pending, quota "
+            f"{quota} B)")

@@ -22,11 +22,17 @@ The catalog below holds the instruments whose producers the port has,
 under the reference's literal names and help texts: the negotiation
 rounds and their times, submit lags, straggler rounds, the coordinator
 ResponseCache's hits and misses, KV operations, retries and give-ups, the
-health watchdog's beats, beat errors and peer failures, and fault fires.
+health watchdog's beats, beat errors and peer failures, fault fires, and
+the fusion and plan machinery's: flushes by trigger and tenant, pending
+bytes, the executor's in-flight depth, the QoS gate's waits, grants,
+shares, sheds and quota blocks, the step capture's phase and events, and
+the dispatch plan cache's hits by source, misses, invalidations,
+evictions, negotiation skips and builds.
 
 With ``HVD_METRICS=0`` every instrument not marked ``always`` records
 nothing (one cached bool). The retry counters are ``always``: they back
-``health_stats()["retries"]``.
+``health_stats()["retries"]``, and so are the plan cache's, which back
+``dispatch_cache_stats()``.
 """
 
 from __future__ import annotations
@@ -312,6 +318,101 @@ FAULT_FIRES = counter(
     "hvd_fault_fires_total",
     "Injected faults fired per site (HVD_FAULT_SPEC chaos runs only).",
     labels=("site",))
+
+
+# -- fusion scheduler (ops/fusion_cycle.py) --------------------------------
+FUSION_FLUSHES = counter(
+    "hvd_fusion_flushes_total",
+    "Fusion-cycle queue flushes by trigger and tenant (process set).",
+    labels=("process_set", "trigger"))
+FUSION_FLUSHED_TENSORS = counter(
+    "hvd_fusion_flushed_tensors_total",
+    "Tensors coalesced through fusion-cycle flushes, per tenant.",
+    labels=("process_set",))
+FUSION_FLUSHED_BYTES = counter(
+    "hvd_fusion_flushed_bytes_total",
+    "Payload bytes coalesced through fusion-cycle flushes, per tenant.",
+    labels=("process_set",))
+FUSION_ENQUEUED_TENSORS = counter(
+    "hvd_fusion_enqueued_tensors_total",
+    "Async submissions accepted into fusion-cycle pending queues, per "
+    "tenant.",
+    labels=("process_set",))
+FUSION_PENDING_BYTES = gauge(
+    "hvd_fusion_pending_bytes",
+    "Bytes currently queued across all fusion-cycle pending queues "
+    "(backpressure drains at HVD_FUSION_MAX_PENDING).")
+PIPELINE_INFLIGHT_DEPTH = gauge(
+    "hvd_pipeline_inflight_depth",
+    "Device-incomplete earlier flushes observed at the last executor "
+    "slot admission (docs/pipeline.md overlap semantics).")
+
+# -- multi-tenant QoS (qos.py; docs/qos.md) --------------------------------
+QOS_ADMISSION_WAIT = histogram(
+    "hvd_qos_admission_wait_seconds",
+    "Time a flush batch spent parked in the QoS admission gate (submit "
+    "-> grant), per tenant (process set).",
+    labels=("process_set",))
+QOS_GRANTED_BYTES = counter(
+    "hvd_qos_granted_bytes_total",
+    "Payload bytes granted into the flush executor's slots by the QoS "
+    "arbiter, per tenant.",
+    labels=("process_set",))
+QOS_SLOT_SHARE = gauge(
+    "hvd_qos_slot_share",
+    "Tenant's cumulative share (0-1) of all bytes granted into the "
+    "executor slots — converges to the configured weight ratio under "
+    "saturation.",
+    labels=("process_set",))
+QOS_SHED = counter(
+    "hvd_qos_shed_total",
+    "Async submissions shed at enqueue by a tenant pending-bytes quota "
+    "(policy=shed); the handle raises QosAdmissionError.",
+    labels=("process_set",))
+QOS_QUOTA_BLOCKS = counter(
+    "hvd_qos_quota_blocks_total",
+    "Producer enqueues that blocked on a tenant pending-bytes quota "
+    "(policy=block) until in-flight work settled.",
+    labels=("process_set",))
+
+# -- step capture (ops/step_capture.py) ------------------------------------
+STEP_CAPTURE_PHASE = gauge(
+    "hvd_step_capture_phase",
+    "Capture lifecycle phase: 0 idle, 1 record, 2 replay (armed), "
+    "3 replayed, 4 bypass.")
+STEP_CAPTURE_STEPS = counter(
+    "hvd_step_capture_steps_total",
+    "Step-capture lifecycle events by kind (recorded / replayed / "
+    "fallback / invalidated / uncapturable).",
+    labels=("event",))
+
+# -- dispatch plan cache (ops/dispatch_cache.py; backs
+#    hvd.dispatch_cache_stats() -- always on) ------------------------------
+DISPATCH_HITS = counter(
+    "hvd_dispatch_plan_hits_total",
+    "Dispatch-plan cache hits by source (call / flush / step / gspmd).",
+    labels=("source",), always=True)
+DISPATCH_MISSES = counter(
+    "hvd_dispatch_plan_misses_total",
+    "Dispatch-plan cache misses (plan built per call).", always=True)
+DISPATCH_INVALIDATIONS = counter(
+    "hvd_dispatch_plan_invalidations_total",
+    "Plans dropped by epoch flushes / service resets / removals.",
+    always=True)
+DISPATCH_EVICTIONS = counter(
+    "hvd_dispatch_plan_evictions_total",
+    "Plans LRU-evicted past HVD_CACHE_CAPACITY.", always=True)
+DISPATCH_NEGOTIATION_SKIPS = counter(
+    "hvd_dispatch_negotiation_skips_total",
+    "Negotiation rounds skipped (pinned no-service decision or engine "
+    "response-cache hit).", always=True)
+DISPATCH_CHUNKED_BUILDS = counter(
+    "hvd_dispatch_chunked_builds_total",
+    "Chunk-pipelined plan variants built (fused wire buffers past "
+    "HVD_PIPELINE_THRESHOLD).", always=True)
+DISPATCH_STEP_BUILDS = counter(
+    "hvd_dispatch_step_builds_total",
+    "Whole-step capture plans built (ops/step_capture.py).", always=True)
 
 
 # --------------------------------------------------------------------------

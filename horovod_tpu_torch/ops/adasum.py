@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from .. import runtime
+from . import program_issue
 
 
 def _coeffs(stats: torch.Tensor):
@@ -205,6 +206,7 @@ def _pad(t: torch.Tensor, multiple: int) -> torch.Tensor:
     return torch.cat([t, t.new_zeros(pad)]) if pad else t
 
 
+@program_issue.issue_serialized
 def reduce_tensors(tensors, route: Route) -> list:
     """Adasum of each tensor of ``tensors`` over ``route``, fused into one
     float32 buffer (float64 stays float64) with one set of coefficients

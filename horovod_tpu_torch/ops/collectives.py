@@ -25,6 +25,15 @@ uneven alltoall, and :func:`join` lets a rank whose data ran out send
 zeros in its place (:func:`_execute_joined_zeros`). ADASUM reduces by
 ``ops/adasum.py`` and is not negotiated, as in the reference.
 
+The ``*_async`` calls queue into the fusion cycle (``ops/fusion_cycle.py``:
+the queued collectives fuse across calls and issue on the pipelined
+executor at a flush, and ``Handle.poll``/``synchronize`` are its
+triggers); ``HVD_CYCLE_TIME=0`` issues them at once. The synchronous calls
+issue at once through the dispatch plan cache (``ops/dispatch_cache.py``),
+after every batch submitted to the executor before them
+(``ops/program_issue.ordered``); ``barrier`` and ``join`` drain the cycle
+first.
+
 Dtypes follow the reference: a scale factor on an integer tensor promotes
 it to float32 (``x * pre``), a bool SUM or PRODUCT counts in int32, MIN and
 MAX of bools stay bool, and ``reducescatter`` of bools raises ``TypeError``.
@@ -32,13 +41,14 @@ MAX of bools stay bool, and ``reducescatter`` of bools raises ``TypeError``.
 
 from __future__ import annotations
 
+import threading
 from typing import Sequence
 
 import torch
 import torch.distributed as dist
 
-from .. import runtime, timeline
-from . import adasum
+from .. import autotune, runtime, timeline
+from . import adasum, dispatch_cache, fusion_cycle, program_issue
 from ..process_sets import ProcessSet, _resolve
 from ..utils import envs
 from .compression import NoneCompressor
@@ -123,26 +133,44 @@ def _fusion_buckets(tensors, threshold: int, elem_count, dtype_of=None):
 
 def _fuse_by_dtype(tensors: Sequence[torch.Tensor], wire_dtypes=None,
                    out_dtypes=None):
-    """Pack tensors into flat wire buffers, one per bucket of
-    :func:`_fusion_buckets` (capped at ``HVD_FUSION_THRESHOLD``), casting
-    each to its wire dtype. Returns ``(buffers, metas)``; a meta holds the
-    dtype each tensor comes back in (``out_dtypes``, default its own)."""
-    bufs, metas = [], []
+    """Pack tensors into their wire buffers (:func:`_fusion_layout`).
+    Returns ``(buffers, metas)``."""
+    return _pack(tensors, _fusion_layout(tensors, wire_dtypes, out_dtypes))
+
+
+def _fusion_layout(tensors, wire_dtypes=None, out_dtypes=None) -> list:
+    """The wire buffers of ``tensors``, one per bucket of
+    :func:`_fusion_buckets` (capped at ``HVD_FUSION_THRESHOLD``), each
+    tensor cast to its wire dtype (``wire_dtypes``, default its own):
+    ``(wire dtype, meta)`` each, a meta holding the dtype each tensor
+    comes back in (``out_dtypes``, default its own). A pure function of
+    the shapes and dtypes (what a dispatch plan keeps)."""
     wire_of = (lambda i: wire_dtypes[i]) if wire_dtypes is not None else None
     outs = out_dtypes or [t.dtype for t in tensors]
-    for dt, idxs in _fusion_buckets(tensors, envs.fusion_threshold_bytes(),
-                                    lambda t: t.numel(), dtype_of=wire_of):
-        bufs.append(torch.cat([tensors[i].reshape(-1).to(dt) for i in idxs]))
-        metas.append((idxs, [tensors[i].shape for i in idxs],
-                      [outs[i] for i in idxs]))
-    return bufs, metas
+    return [(dt, (idxs, [tensors[i].shape for i in idxs],
+                  [outs[i] for i in idxs]))
+            for dt, idxs in _fusion_buckets(
+                tensors, envs.fusion_threshold_bytes(), lambda t: t.numel(),
+                dtype_of=wire_of)]
+
+
+def _pack(tensors, layout):
+    """The wire buffers of ``layout`` (:func:`_fusion_layout`) over
+    ``tensors``, and their metas."""
+    bufs = [torch.cat([tensors[i].reshape(-1).to(dt) for i in meta[0]])
+            for dt, meta in layout]
+    return bufs, [meta for _, meta in layout]
 
 
 def _split_fused(bufs, metas, count: int) -> list:
-    """Inverse of :func:`_fuse_by_dtype`: split each flat buffer back into
-    its tensors, cast to each tensor's result dtype."""
+    """Inverse of :func:`_pack`: split each flat buffer back into
+    its tensors, cast to each tensor's result dtype. On the card a buffer
+    made on another stream (the flush executor's) is marked as used by
+    the current one, which reads it from now on."""
     results: list = [None] * count
     for buf, (idxs, shapes, srcs) in zip(bufs, metas):
+        if buf.is_cuda and not torch.cuda.is_current_stream_capturing():
+            buf.record_stream(torch.cuda.current_stream(buf.device))
         pieces = buf.split([s.numel() for s in shapes])
         for i, piece, shape, src in zip(idxs, pieces, shapes, srcs):
             results[i] = piece.view(shape).to(src)
@@ -159,15 +187,27 @@ class Handle:
         self._finish = finish
         self._result = result
         self._done = finish is None
+        self._lock = threading.Lock()
 
     def synchronize(self):
         if not self._done:
-            for w in self._works:
-                w.wait()
-            self._result = self._finish()
-            self._done = True
-            self._works, self._finish = [], None
+            with self._lock:  # the entries of one flush share a handle
+                if not self._done:
+                    for w in self._works:
+                        w.wait()
+                    self._result = self._finish()
+                    self._done = True
+                    self._works, self._finish = [], None
         return self._result
+
+    def pending_works(self) -> list:
+        """The collective works not yet waited for (the flush executor's
+        completion markers)."""
+        return [] if self._done else list(self._works)
+
+    def flush(self) -> None:
+        """Issue the collective now if it is still queued in the fusion
+        cycle (the ``bucket`` trigger; non-blocking)."""
 
     def poll(self) -> bool:
         """Whether the collective has finished, without waiting (on the
@@ -198,6 +238,48 @@ class _Then(Handle):
 
     def issue(self) -> None:
         self._parent.issue()
+
+    def flush(self) -> None:
+        self._parent.flush()
+
+
+class _QueuedHandle(Handle):
+    """A handle over a fusion-cycle entry (``ops/fusion_cycle.py``): the
+    collective has not been issued yet; ``poll``/``synchronize`` flush
+    the entry's queue, and :meth:`flush` issues it (``bucket``)."""
+
+    def __init__(self, entry):
+        super().__init__(finish=self._land)
+        self._entry = entry
+
+    def _land(self):
+        results = fusion_cycle.scheduler().wait_result(self._entry)
+        return list(results) if self._entry.grouped else results[0]
+
+    def poll(self) -> bool:
+        return self._done or fusion_cycle.scheduler().poll_entry(self._entry)
+
+    def flush(self) -> None:
+        fusion_cycle.scheduler().flush_entry(self._entry, "bucket")
+
+    def issue(self) -> None:
+        self.flush()
+
+
+class _MultiHandle(Handle):
+    """One handle over per-tensor queued handles (a grouped broadcast):
+    its result is their results' list."""
+
+    def __init__(self, handles):
+        super().__init__(finish=lambda: [h.synchronize() for h in handles])
+        self._handles = handles
+
+    def poll(self) -> bool:
+        return self._done or all(h.poll() for h in self._handles)
+
+    def flush(self) -> None:
+        for h in self._handles:
+            h.flush()
 
 
 class _Negotiated(Handle):
@@ -320,14 +402,16 @@ def _group_requests(base: str, request_type: int, shapes_dtypes,
 
 def _ranged(issue, lane: str, activity: str | None):
     """``issue`` inside a timeline range of ``activity`` on ``lane`` (the
-    reference's per-op ranges, collectives.py:1538-2249); None: no
-    range."""
-    if activity is None:
-        return issue
+    reference's per-op ranges, collectives.py:1538-2249; None: no range),
+    issued in order with the flush executor's batches
+    (``program_issue.ordered``)."""
 
     def ranged(responses=None):
-        with timeline.op_range(lane, activity):
-            return issue(responses)
+        with program_issue.ordered():
+            if activity is None:
+                return issue(responses)
+            with timeline.op_range(lane, activity):
+                return issue(responses)
 
     return ranged
 
@@ -357,11 +441,15 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor], *,
                             process_set: ProcessSet | None = None,
                             name: str | None = None) -> Handle:
     """Start a fused allreduce of a tensor list over ``process_set``
-    (reference ``grouped_allreduce_async``). AVERAGE lowers to SUM with a
-    postscale of ``1/size`` of the set. The scale factors multiply out of
-    place, so an integer tensor comes back float32 as in the reference.
-    ``compression`` sends floating tensors in its wire dtype, and results
-    come back in each tensor's own dtype; a compressor with its own
+    (reference ``grouped_allreduce_async``). The group queues into the
+    fusion cycle as one entry (never split across flushes), where it may
+    fuse further with other pending submissions of its signature; with
+    the cycle off, or for Adasum or a custom compressor, it issues at
+    once. AVERAGE lowers to SUM with a postscale of ``1/size`` of the
+    set. The scale factors multiply out of place, so an integer tensor
+    comes back float32 as in the reference. ``compression`` sends
+    floating tensors in its wire dtype, and results come back in each
+    tensor's own dtype; a compressor with its own
     ``compress``/``decompress`` and no wire dtype wraps each tensor and
     reduces what it makes, without wire-dtype fusion. With
     ``HVD_HIERARCHICAL_ALLREDUCE`` set, a SUM or AVERAGE over the global
@@ -369,9 +457,37 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor], *,
     combines each tensor by Adasum (``ops/adasum.py``) and, as in the
     reference, ignores the scales and the compressor and is not
     negotiated. Under a negotiation service (``engine_service.py``) the
-    call negotiates ``name`` (default: the next ``allreduce.<n>``) before
-    it issues."""
+    call negotiates ``name`` (default: the next ``q_grouped_allreduce.<n>``
+    when queued, ``allreduce.<n>`` when not) before it issues."""
+    tensors = list(tensors)
+    if not tensors:
+        return Handle(result=[])
+    h = fusion_cycle.queue_allreduce(
+        tensors, grouped=True, op=op, process_set=process_set,
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+        name=name, compression=compression)
+    if h is not None:
+        return h
+    return _grouped_allreduce_now(
+        tensors, op=op, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor, compression=compression,
+        process_set=process_set, name=name)
+
+
+def _grouped_allreduce_now(tensors, *, op, prescale_factor, postscale_factor,
+                           compression, process_set, name,
+                           kind: str = "grouped_allreduce") -> Handle:
+    """Issue a (grouped) allreduce at once: through a dispatch plan where
+    every input is a tensor and the set is plain, else through
+    :func:`_reduce_async`."""
     pset = _resolve(process_set)
+    tensors = list(tensors)
+    if (op != ReduceOp.ADASUM and not _is_custom_compressor(compression)
+            and dispatch_cache.enabled()):
+        plan = _reduce_plan(tensors, pset, op, prescale_factor,
+                            postscale_factor, compression, name, kind)
+        if plan is not None:
+            return plan.run(tensors)
     return _reduce_async(tensors, op=op, prescale_factor=prescale_factor,
                          postscale_factor=postscale_factor,
                          compression=compression, size=pset.size(),
@@ -399,11 +515,174 @@ def _reducer(pset: ProcessSet, op: ReduceOp):
     return reduce
 
 
+def _pipeline_key():
+    """The chunking knobs a plan bakes in, or None with chunking off."""
+    if not envs.pipeline_chunking_enabled():
+        return None
+    return (envs.pipeline_threshold_bytes(), envs.pipeline_chunks())
+
+
+def _chunk_layout(layout) -> list | None:
+    """The chunks of the wire buffers of ``layout``
+    (:func:`_fusion_layout`): a buffer past ``HVD_PIPELINE_THRESHOLD``
+    bytes is issued as ``HVD_PIPELINE_CHUNKS`` contiguous ranges, each its
+    own collective (the JAX package's ``_chunk_layout``); None when no
+    buffer chunks. A list of ``(bucket, start, end)`` elements."""
+    if not envs.pipeline_chunking_enabled():
+        return None
+    threshold, chunks = envs.pipeline_threshold_bytes(), envs.pipeline_chunks()
+    out, any_chunked = [], False
+    for bi, (dt, (_idxs, shapes, _outs)) in enumerate(layout):
+        total = sum(s.numel() for s in shapes)
+        if total * dt.itemsize <= threshold or total < chunks:
+            out.append((bi, 0, total))
+            continue
+        any_chunked = True
+        step = -(-total // chunks)
+        out.extend((bi, a, min(a + step, total))
+                   for a in range(0, total, step))
+    return out if any_chunked else None
+
+
+class _Resolved:
+    """Every decision of one allreduce signature, resolved once: the
+    AVERAGE lowering, the wire and result dtypes, the bucket layout and
+    its chunks (what a dispatch plan keeps)."""
+
+    __slots__ = ("op", "lowered", "post", "pre", "wire", "layout", "chunks",
+                 "nbytes", "count")
+
+    def __init__(self, tensors, op, pre, post, compression, size):
+        self.op = op
+        self.pre = pre
+        self.lowered, self.post = handle_average(op, size, post)
+        dts = [torch.float32 if (op == ReduceOp.AVERAGE
+                                 and t.dtype == torch.bool) else t.dtype
+               for t in tensors]
+        if pre != 1.0:
+            dts = [torch.result_type(torch.empty((), dtype=d), pre)
+                   for d in dts]
+        metas = [torch.empty(0, dtype=d) for d in dts]
+        self.wire = [_wire_dtype_of(m, compression) for m in metas]
+        outs = [_reduced_dtype(d, self.lowered, self.post) for d in dts]
+        self.layout = _fusion_layout(tensors, self.wire, outs)
+        self.chunks = _chunk_layout(self.layout)
+        self.nbytes = sum(t.numel() * w.itemsize
+                          for t, w in zip(tensors, self.wire))
+        self.count = len(tensors)
+
+
+def _issue_reduce(tensors, r: _Resolved, reduce) -> Handle:
+    """Pack ``tensors`` by ``r``'s layout and issue ``reduce(buffer,
+    dist_op) -> (work or None, result)`` per wire buffer, or per chunk of
+    a chunked buffer; the unpack (postscale, split, cast back) runs at
+    ``synchronize()``."""
+    if r.op == ReduceOp.AVERAGE:  # the mean of bools is a float32 share
+        tensors = [t.float() if t.dtype == torch.bool else t
+                   for t in tensors]
+    if r.pre != 1.0:
+        tensors = [t * r.pre for t in tensors]
+    bufs, metas = _pack(tensors, r.layout)
+    dist_op = _DIST_OPS[r.lowered]
+    if r.chunks is None:
+        reduced = [reduce(buf, dist_op) for buf in bufs]
+        works = [w for w, _ in reduced if w is not None]
+        results = [res for _, res in reduced]
+        joined = lambda: results  # noqa: E731
+    else:
+        pieces = [[] for _ in bufs]  # (chunk, (work, result)) a buffer
+        for bi, a, b in r.chunks:
+            with timeline.pipeline_stage("DISPATCH"):
+                chunk = bufs[bi][a:b]
+                pieces[bi].append((chunk, reduce(chunk, dist_op)))
+        works = [w for ps in pieces for _, (w, _) in ps if w is not None]
+
+        def joined():
+            # the flat reducer reduces each chunk in place; another one
+            # hands back new pieces, joined here
+            return [buf if all(res.data_ptr() == c.data_ptr()
+                               for c, (_, res) in ps)
+                    else torch.cat([res for _, (_, res) in ps])
+                    for buf, ps in zip(bufs, pieces)]
+
+    def finish():
+        scaled = joined()
+        if r.post != 1.0:  # out of place: an integer buffer turns float32
+            scaled = [b.mul_(r.post) if b.is_floating_point()
+                      else b * r.post for b in scaled]
+        return _split_fused(scaled, metas, r.count)
+
+    return Handle(works, finish)
+
+
+def _reduce_plan(tensors, pset, op, pre, post, compression, name,
+                 kind: str):
+    """The dispatch plan of an allreduce of ``tensors``: looked up by the
+    JAX package's key, built at a miss. None where an input is not a
+    tensor."""
+    from . import hierarchical
+    sigs = tuple(fusion_cycle.plan_sig(t) for t in tensors)
+    if any(s is None for s in sigs):
+        return None
+    wire = getattr(compression, "wire_dtype", None)
+    comp_key = str(wire).removeprefix("torch.") if wire is not None else None
+    hier = (op in (ReduceOp.SUM, ReduceOp.AVERAGE)
+            and hierarchical.enabled(envs.HIERARCHICAL_ALLREDUCE, pset))
+    if kind == "allreduce":  # the port's also takes a compressor
+        key = ("allreduce", name, sigs[0], None,
+               fusion_cycle.dispatch_key(pset), int(op), float(pre),
+               float(post), hier, comp_key)
+    else:
+        key = ("grouped_allreduce", name, sigs, None,
+               fusion_cycle.dispatch_key(pset), int(op), float(pre),
+               float(post), hier, envs.fusion_threshold_bytes(), comp_key,
+               _pipeline_key())
+    plan = dispatch_cache.lookup(key)
+    if plan is None:
+        plan = _build_reduce_plan(tensors, pset, op, pre, post, compression,
+                                  name)
+        dispatch_cache.store(key, plan)
+    return plan
+
+
+def _build_reduce_plan(tensors, pset, op, pre, post, compression, name):
+    """Resolve an allreduce signature once: the negotiation decision (a
+    service, or none pinned) and :class:`_Resolved`."""
+    from .. import engine_service
+    for t in tensors:
+        _check_op_dtype(op, t.dtype)
+    svc = engine_service.get_service(pset)
+    r = _Resolved(tensors, op, float(pre), float(post), compression,
+                  pset.size())
+    activity = "ALLREDUCE" if len(tensors) == 1 else "GROUPED_ALLREDUCE"
+
+    def execute(ts):
+        # the reducer is a closure over the set's groups, made per call
+        # (the routing knob is part of the key)
+        reduce = _reducer(pset, op)
+
+        def issue(_responses=None):
+            return _issue_reduce(ts, r, reduce)
+
+        if svc is None:
+            return _ranged(issue, name or activity.lower(), activity)()
+        return _gate(pset, "allreduce", name, lambda base: _group_requests(
+            base, REQ_ALLREDUCE, [(t.shape, w) for t, w in zip(ts, r.wire)],
+            reduce_op=int(op), prescale=float(pre),
+            postscale=float(post)), issue, activity)
+
+    return dispatch_cache.DispatchPlan(
+        name or activity.lower(), activity, r.nbytes,
+        None if svc is None else svc, execute,
+        variant="fused" if r.chunks is None else "chunked",
+        pieces=1 if r.chunks is None else len(r.chunks))
+
+
 def _reduce_async(tensors, *, op: ReduceOp, prescale_factor: float,
                   postscale_factor: float, compression, size: int,
                   reduce, negotiate: ProcessSet | None = None,
                   name: str | None = None) -> Handle:
-    """The body of :func:`grouped_allreduce_async` over ``size`` ranks:
+    """The body of an allreduce over ``size`` ranks without a plan:
     checks, the custom compressor's wrap, AVERAGE's lowering, the scales,
     the fusion, then ``reduce(buffer, dist_op) -> (work or None,
     result)`` for each wire buffer, and the unpack at ``synchronize()``.
@@ -421,12 +700,14 @@ def _reduce_async(tensors, *, op: ReduceOp, prescale_factor: float,
         # the reference's Adasum returns before the compressor and the
         # scales: an eager Adasum ignores both
         results: list = [None] * len(tensors)
-        for _, idxs in _fusion_buckets(
-                tensors, envs.fusion_threshold_bytes(), lambda t: t.numel(),
-                dtype_of=lambda i: torch.float32):
-            outs = adasum.reduce_tensors([tensors[i] for i in idxs], reduce)
-            for i, o in zip(idxs, outs):
-                results[i] = o
+        with program_issue.ordered():
+            for _, idxs in _fusion_buckets(
+                    tensors, envs.fusion_threshold_bytes(),
+                    lambda t: t.numel(), dtype_of=lambda i: torch.float32):
+                outs = adasum.reduce_tensors([tensors[i] for i in idxs],
+                                             reduce)
+                for i, o in zip(idxs, outs):
+                    results[i] = o
         return Handle(result=results)
     if _is_custom_compressor(compression):
         pairs = [compression.compress(t) for t in tensors]
@@ -437,53 +718,96 @@ def _reduce_async(tensors, *, op: ReduceOp, prescale_factor: float,
         return handle.then(lambda outs: [
             compression.decompress(o, ctx)
             for o, (_, ctx) in zip(outs, pairs)])
-    lowered, post = handle_average(op, size, postscale_factor)
-    if op == ReduceOp.AVERAGE:  # the mean of bools is a float32 share
-        tensors = [t.float() if t.dtype == torch.bool else t
-                   for t in tensors]
-    if prescale_factor != 1.0:
-        tensors = [t * prescale_factor for t in tensors]
-    wire = [_wire_dtype_of(t, compression) for t in tensors]
-    outs = [_reduced_dtype(t.dtype, lowered, post) for t in tensors]
-    bufs, metas = _fuse_by_dtype(tensors, wire, outs)
+    r = _Resolved(tensors, op, float(prescale_factor),
+                  float(postscale_factor), compression, size)
+    autotune.record(r.nbytes)
 
     def issue(_responses=None) -> Handle:
-        reduced = [reduce(buf, _DIST_OPS[lowered]) for buf in bufs]
-        results = [r for _, r in reduced]
-
-        def finish():
-            scaled = results
-            if post != 1.0:  # out of place: an integer buffer turns float32
-                scaled = [b.mul_(post) if b.is_floating_point()
-                          else b * post for b in results]
-            return _split_fused(scaled, metas, len(tensors))
-
-        return Handle([w for w, _ in reduced if w is not None], finish)
+        return _issue_reduce(tensors, r, reduce)
 
     activity = "ALLREDUCE" if len(tensors) == 1 else "GROUPED_ALLREDUCE"
     if negotiate is None:
         return _ranged(issue, name or activity.lower(), activity)()
     return _gate(negotiate, "allreduce", name, lambda base: _group_requests(
-        base, REQ_ALLREDUCE, [(t.shape, w) for t, w in zip(tensors, wire)],
+        base, REQ_ALLREDUCE, [(t.shape, w) for t, w in zip(tensors, r.wire)],
         reduce_op=int(op), prescale=float(prescale_factor),
         postscale=float(postscale_factor)), issue, activity)
 
 
+def _queued_grouped_allreduce(tensors, spec) -> Handle:
+    """A fusion-cycle flush of an allreduce queue: one grouped collective
+    through the dispatch plan cache (source ``flush``), or a plain issue
+    with caching off."""
+    if dispatch_cache.enabled():
+        plan = _reduce_plan(tensors, spec.pset, spec.op, spec.pre,
+                            spec.post, spec.compression, None,
+                            "grouped_allreduce")
+        if plan is not None:
+            return plan.run(tensors)
+    return _reduce_async(tensors, op=spec.op, prescale_factor=spec.pre,
+                         postscale_factor=spec.post,
+                         compression=spec.compression,
+                         size=spec.pset.size(),
+                         reduce=_reducer(spec.pset, spec.op))
+
+
+def _run_queued_allreduce(tensors, spec, label: str) -> Handle:
+    """One negotiated queue entry (a tensor, or an atomic group) in its
+    submission-time composition, which is what a joined rank rebuilds from
+    the plan (:func:`_execute_joined_zeros`); its plan has arrived."""
+    return _reduce_async(tensors, op=spec.op, prescale_factor=spec.pre,
+                         postscale_factor=spec.post,
+                         compression=spec.compression,
+                         size=spec.pset.size(),
+                         reduce=_reducer(spec.pset, spec.op), name=label)
+
+
 def grouped_allreduce(tensors: Sequence[torch.Tensor], **kw) -> list:
-    """Fused allreduce of a tensor list; see :func:`grouped_allreduce_async`."""
-    return grouped_allreduce_async(tensors, **kw).synchronize()
+    """Fused allreduce of a tensor list, issued at once; see
+    :func:`grouped_allreduce_async`."""
+    tensors = list(tensors)
+    if not tensors:
+        return []
+    return _grouped_allreduce_now(
+        tensors, op=kw.pop("op", ReduceOp.AVERAGE),
+        prescale_factor=kw.pop("prescale_factor", 1.0),
+        postscale_factor=kw.pop("postscale_factor", 1.0),
+        compression=kw.pop("compression", None),
+        process_set=kw.pop("process_set", None), name=kw.pop("name", None),
+        **kw).synchronize()
 
 
-def allreduce_async(tensor: torch.Tensor, **kw) -> Handle:
-    """Start an allreduce of one tensor (reference ``allreduce_async``);
-    keywords as for :func:`grouped_allreduce_async`."""
-    return grouped_allreduce_async([tensor], **kw).then(lambda r: r[0])
+def allreduce_async(tensor: torch.Tensor, *, compression=None,
+                    **kw) -> Handle:
+    """Start an allreduce of one tensor (reference ``allreduce_async``):
+    it queues into the fusion cycle; keywords as for
+    :func:`grouped_allreduce_async`."""
+    op = kw.get("op", ReduceOp.AVERAGE)
+    h = fusion_cycle.queue_allreduce(
+        [tensor], grouped=False, op=op,
+        process_set=kw.get("process_set"),
+        prescale_factor=kw.get("prescale_factor", 1.0),
+        postscale_factor=kw.get("postscale_factor", 1.0),
+        name=kw.get("name"), compression=compression)
+    if h is not None:
+        return h
+    return _grouped_allreduce_now(
+        [tensor], op=op, prescale_factor=kw.get("prescale_factor", 1.0),
+        postscale_factor=kw.get("postscale_factor", 1.0),
+        compression=compression, process_set=kw.get("process_set"),
+        name=kw.get("name"), kind="allreduce").then(lambda r: r[0])
 
 
 def allreduce(tensor: torch.Tensor, **kw) -> torch.Tensor:
-    """Allreduce one tensor (reference ``hvd.allreduce``); keywords as for
-    :func:`grouped_allreduce_async`."""
-    return grouped_allreduce([tensor], **kw)[0]
+    """Allreduce one tensor (reference ``hvd.allreduce``), issued at once;
+    keywords as for :func:`grouped_allreduce_async`."""
+    return _grouped_allreduce_now(
+        [tensor], op=kw.pop("op", ReduceOp.AVERAGE),
+        prescale_factor=kw.pop("prescale_factor", 1.0),
+        postscale_factor=kw.pop("postscale_factor", 1.0),
+        compression=kw.pop("compression", None),
+        process_set=kw.pop("process_set", None), name=kw.pop("name", None),
+        kind="allreduce", **kw).synchronize()[0]
 
 
 def _check_root(root_rank: int, pset: ProcessSet) -> None:
@@ -498,45 +822,130 @@ def grouped_broadcast_async(tensors: Sequence[torch.Tensor], root_rank: int,
                             *, process_set: ProcessSet | None = None,
                             name: str | None = None) -> Handle:
     """Start a broadcast of a tensor list from the global rank
-    ``root_rank`` over ``process_set``, fused into one wire buffer per
-    dtype; the handle's result is the new tensors. Negotiated under a
-    service, as an allreduce is."""
+    ``root_rank`` over ``process_set``; the handle's result is the new
+    tensors. Each tensor queues into the fusion cycle as an entry of its
+    own (so broadcasts of one root submitted apart coalesce too); with the
+    cycle off it issues at once, fused into one wire buffer per dtype.
+    Negotiated under a service, as an allreduce is."""
+    tensors = list(tensors)
+    if not tensors:
+        return Handle(result=[])
+    handles = []
+    for i, t in enumerate(tensors):
+        h = fusion_cycle.queue_broadcast(
+            t, root_rank, process_set=process_set,
+            name=None if name is None else f"{name}.{i}")
+        if h is None:
+            break
+        handles.append(h)
+    if len(handles) == len(tensors):
+        return _MultiHandle(handles)
+    prefix = [h.synchronize() for h in handles]
+    rest = _grouped_broadcast_now(
+        tensors[len(handles):], root_rank, process_set=process_set,
+        name=None if name is None else f"{name}.rest")
+    return rest.then(lambda r: prefix + r)
+
+
+def _broadcast_issue(tensors, root_rank: int, group, layout):
+    """Pack ``tensors`` by ``layout``, issue one broadcast a buffer, and
+    split at ``synchronize()``."""
+
+    def issue(_responses=None) -> Handle:
+        bufs, metas = _pack(tensors, layout)
+        works = [dist.broadcast(buf, src=root_rank, group=group,
+                                async_op=True) for buf in bufs]
+        return Handle(works, lambda: _split_fused(bufs, metas, len(tensors)))
+
+    return issue
+
+
+def _grouped_broadcast_now(tensors, root_rank: int, *,
+                           process_set: ProcessSet | None = None,
+                           name: str | None = None) -> Handle:
+    """Issue a grouped broadcast at once, through its dispatch plan (the
+    layout and the negotiation decision)."""
+    from .. import engine_service
     tensors = list(tensors)
     pset = _resolve(process_set)
     group = pset.group()
     if not tensors:
         return Handle(result=[])
     _check_root(root_rank, pset)
-    bufs, metas = _fuse_by_dtype(tensors)
+    activity = "BROADCAST" if len(tensors) == 1 else "GROUPED_BROADCAST"
+    key = ("grouped_broadcast", name,
+           tuple(fusion_cycle.plan_sig(t) for t in tensors), None,
+           fusion_cycle.dispatch_key(pset), root_rank,
+           envs.fusion_threshold_bytes())
+    plan = dispatch_cache.lookup(key) if dispatch_cache.enabled() else None
+    if plan is None:
+        layout = _fusion_layout(tensors)
+        svc = engine_service.get_service(pset)
 
-    def issue(_responses=None) -> Handle:
-        works = [dist.broadcast(buf, src=root_rank, group=group,
-                                async_op=True) for buf in bufs]
-        return Handle(works, lambda: _split_fused(bufs, metas, len(tensors)))
+        def execute(ts):
+            issue = _broadcast_issue(ts, root_rank, group, layout)
+            if svc is None:
+                return _ranged(issue, name or activity.lower(), activity)()
+            return _gate(pset, "broadcast", name, lambda base:
+                         _group_requests(base, REQ_BROADCAST,
+                                         [(t.shape, t.dtype) for t in ts],
+                                         root_rank=root_rank),
+                         issue, activity)
 
-    return _gate(pset, "broadcast", name, lambda base: _group_requests(
-        base, REQ_BROADCAST, [(t.shape, t.dtype) for t in tensors],
-        root_rank=root_rank), issue,
-        "BROADCAST" if len(tensors) == 1 else "GROUPED_BROADCAST")
+        plan = dispatch_cache.DispatchPlan(
+            name or activity.lower(), activity,
+            sum(t.numel() * t.element_size() for t in tensors), svc,
+            execute)
+        dispatch_cache.store(key, plan)
+    return plan.run(tensors)
+
+
+def _queued_grouped_broadcast(tensors, spec) -> Handle:
+    """A fusion-cycle flush of a broadcast queue: one grouped broadcast
+    through the dispatch plan cache."""
+    return _grouped_broadcast_now(tensors, spec.root_rank,
+                                  process_set=spec.pset)
+
+
+def _run_queued_broadcast(tensors, spec) -> Handle:
+    """A negotiated broadcast batch (its plans have arrived): one fused
+    broadcast."""
+    autotune.record(sum(t.numel() * t.element_size() for t in tensors))
+    issue = _broadcast_issue(tensors, spec.root_rank, spec.pset.group(),
+                             _fusion_layout(tensors))
+    activity = "BROADCAST" if len(tensors) == 1 else "GROUPED_BROADCAST"
+    return _ranged(issue, activity.lower(), activity)()
 
 
 def grouped_broadcast(tensors: Sequence[torch.Tensor], root_rank: int,
                       **kw) -> list:
     """Broadcast a tensor list from ``root_rank``, fused into one wire
-    buffer per dtype. Returns new tensors."""
-    return grouped_broadcast_async(tensors, root_rank, **kw).synchronize()
+    buffer per dtype and issued at once. Returns new tensors."""
+    return _grouped_broadcast_now(tensors, root_rank, **kw).synchronize()
 
 
 def broadcast_async(tensor: torch.Tensor, root_rank: int, **kw) -> Handle:
     """Start a broadcast of one tensor from ``root_rank`` (reference
-    ``hvd.broadcast_async``); ``synchronize()`` gives the new tensor."""
-    return grouped_broadcast_async([tensor], root_rank, **kw).then(
+    ``hvd.broadcast_async``): it queues into the fusion cycle;
+    ``synchronize()`` gives the new tensor."""
+    h = fusion_cycle.queue_broadcast(tensor, root_rank, **kw)
+    if h is not None:
+        return h
+    return _grouped_broadcast_now([tensor], root_rank, **kw).then(
         lambda r: r[0])
 
 
 def broadcast(tensor: torch.Tensor, root_rank: int, **kw) -> torch.Tensor:
-    """Broadcast one tensor from ``root_rank`` (reference ``hvd.broadcast``)."""
-    return broadcast_async(tensor, root_rank, **kw).synchronize()
+    """Broadcast one tensor from ``root_rank`` (reference
+    ``hvd.broadcast``), issued at once."""
+    return _grouped_broadcast_now([tensor], root_rank, **kw).synchronize()[0]
+
+
+def _stream_done(stream):
+    """A finished-on-``stream`` marker: its ``wait()`` makes the current
+    stream wait for ``stream``'s work so far."""
+    from . import hierarchical
+    return hierarchical._StreamWork(stream)
 
 
 def barrier(*, process_set: ProcessSet | None = None) -> None:
@@ -544,6 +953,7 @@ def barrier(*, process_set: ProcessSet | None = None) -> None:
     joined rank counts as arrived."""
     pset = _resolve(process_set)
     group = pset.group()
+    fusion_cycle.flush_all("barrier")
 
     def issue(_responses=None) -> Handle:
         dist.barrier(group=group)
@@ -575,25 +985,46 @@ def allgather_async(tensor: torch.Tensor, *,
                     process_set: ProcessSet | None = None,
                     name: str | None = None) -> Handle:
     """Start an allgather (reference ``hvd.allgather_async``); see
-    :func:`allgather`. Without a negotiation service the shapes are
-    exchanged before this returns; the handle's result is the
-    concatenation. With ``HVD_HIERARCHICAL_ALLGATHER``
-    set, a gather over the global set runs two-level
-    (``ops/hierarchical.py``). Under a negotiation service the row counts
-    come with the plan (a joined rank's are 0), and no shape exchange is
-    needed."""
-    pset = _resolve(process_set)
+    :func:`allgather`. It queues into the fusion cycle and issues alone at
+    a flush (its row counts are exchanged, or negotiated, per call); the
+    handle's result is the concatenation. With
+    ``HVD_HIERARCHICAL_ALLGATHER`` set, a gather over the global set runs
+    two-level (``ops/hierarchical.py``). Under a negotiation service the
+    row counts come with the plan (a joined rank's are 0), and no shape
+    exchange is needed."""
+    h = fusion_cycle.queue_allgather(tensor, process_set=process_set,
+                                     name=name)
+    if h is not None:
+        return h
+    return _allgather_now(tensor, _resolve(process_set), name)
 
-    def issue(responses=None) -> Handle:
-        rows = None
-        if responses is not None:  # a scalar is one row of every rank's
-            rows = ([1] * pset.size() if tensor.dim() == 0
-                    else list(responses[0].recv_splits))
-        return _allgather_async(tensor, pset, rows=rows)
 
+def _allgather_now(tensor: torch.Tensor, pset: ProcessSet,
+                   name: str | None) -> Handle:
+    """Issue an allgather at once (negotiated under a service)."""
     return _gate(pset, "allgather", name, lambda base: [
-        _request(base, REQ_ALLGATHER, tensor.shape, tensor.dtype)], issue,
+        _request(base, REQ_ALLGATHER, tensor.shape, tensor.dtype)],
+        lambda responses=None: _allgather_issue(tensor, pset, responses),
         "ALLGATHER")
+
+
+def _allgather_issue(tensor: torch.Tensor, pset: ProcessSet,
+                     responses=None) -> Handle:
+    """An allgather's issue: the row counts from the plan's responses
+    where there are some, else exchanged first."""
+    rows = None
+    if responses is not None:  # a scalar is one row of every rank's
+        rows = ([1] * pset.size() if tensor.dim() == 0
+                else list(responses[0].recv_splits))
+    return _allgather_async(tensor, pset, rows=rows)
+
+
+def _queued_allgather(tensor, spec, name) -> Handle:
+    """A fusion-cycle allgather entry, issued now; its result is a list of
+    one."""
+    h = _allgather_now(tensor, spec.pset, name)
+    h.issue()
+    return h.then(lambda r: [r])
 
 
 def _gather_levels(pset: ProcessSet) -> tuple:
@@ -648,8 +1079,8 @@ def allgather(tensor: torch.Tensor, *,
     reference's allgatherv contract): the row counts are exchanged first,
     the rows travel padded to the largest count, and the padding is cut
     off. A 0-d tensor counts as one row."""
-    return allgather_async(tensor, process_set=process_set,
-                           name=name).synchronize()
+    return _allgather_now(tensor, _resolve(process_set),
+                          name).synchronize()
 
 
 def alltoall(tensor: torch.Tensor, splits=None, *,
@@ -762,7 +1193,8 @@ def broadcast_object(obj, root_rank: int = 0, *,
     if pset.size() == 1:
         return obj
     box = [obj if runtime.rank() == root_rank else None]
-    dist.broadcast_object_list(box, src=root_rank, group=group)
+    with program_issue.ordered():
+        dist.broadcast_object_list(box, src=root_rank, group=group)
     return box[0]
 
 
@@ -776,7 +1208,8 @@ def allgather_object(obj, *, process_set: ProcessSet | None = None,
     if pset.size() == 1:
         return [obj]
     out = [None] * pset.size()
-    dist.all_gather_object(out, obj, group=group)
+    with program_issue.ordered():
+        dist.all_gather_object(out, obj, group=group)
     return out
 
 
@@ -847,6 +1280,7 @@ def join() -> int:
     from .. import engine_service
     pset = _resolve(None)
     svc = engine_service.get_service(pset)
+    fusion_cycle.flush_all("join")
     if svc is None:
         barrier()
         return runtime.size() - 1

@@ -61,20 +61,50 @@ def sparse_allreduce_async(rows: SparseRows, *,
                            process_set=None, name: str | None = None
                            ) -> collectives.Handle:
     """Start :func:`sparse_allreduce`; the handle's result is the gathered
-    ``SparseRows``. The shapes are exchanged before this returns."""
-    del name
+    ``SparseRows``. It queues into the fusion cycle as an entry with its
+    own composition (the values' and indices' allgathers); the name, under
+    a negotiation service, is drawn at submission."""
+    from . import fusion_cycle
+    from .. import engine_service
+    _check_sparse_op(op, rows)
+    pset = _resolve(process_set)
+    fixed = name
+    if fixed is None and engine_service.get_service(pset) is not None:
+        fixed = collectives._auto_name("sparse_allreduce", pset)
+
+    def run():
+        return _sparse_allreduce_now(rows, op, pset, fixed).synchronize()
+
+    h = fusion_cycle.queue_opaque(
+        "sparse_allreduce", run, process_set=pset,
+        nbytes=rows.values.numel() * rows.values.element_size(),
+        label=fixed or "sparse_allreduce", extra_key=(int(op),))
+    if h is not None:
+        return h
+    return _sparse_allreduce_now(rows, op, pset)
+
+
+def _check_sparse_op(op: ReduceOp, rows: SparseRows) -> None:
     if op not in (ReduceOp.AVERAGE, ReduceOp.SUM):
         raise ValueError(
             f"sparse_allreduce supports AVERAGE/SUM, got {op.name} "
             "(matches the reference, which only averages/sums IndexedSlices)")
-    pset = _resolve(process_set)
+    if op == ReduceOp.AVERAGE and not (rows.values.is_floating_point()
+                                       or rows.values.is_complex()):
+        raise TypeError("AVERAGE needs floating-point values; use SUM")
+
+
+def _sparse_allreduce_now(rows: SparseRows, op: ReduceOp, pset,
+                          name: str | None = None):
+    """Issue the two allgathers of a sparse allreduce at once (named after
+    ``name`` where it is given)."""
     values = rows.values
     if op == ReduceOp.AVERAGE:
-        if not (values.is_floating_point() or values.is_complex()):
-            raise TypeError("AVERAGE needs floating-point values; use SUM")
         values = values / pset.size()
-    h_values = collectives.allgather_async(values, process_set=pset)
-    h_indices = collectives.allgather_async(rows.indices, process_set=pset)
+    h_values = collectives._allgather_now(
+        values, pset, name and f"{name}.values")
+    h_indices = collectives._allgather_now(
+        rows.indices, pset, name and f"{name}.indices")
     return h_values.then(lambda v: SparseRows(
         v, h_indices.synchronize(), rows.num_rows))
 
@@ -86,8 +116,10 @@ def sparse_allreduce(rows: SparseRows, *, op: ReduceOp = ReduceOp.AVERAGE,
     its values and indices (reference ``sparse_allreduce``). AVERAGE
     divides the values by the set's size first, so the gathered rows sum
     to the dense average; only SUM and AVERAGE are defined."""
-    return sparse_allreduce_async(rows, op=op, process_set=process_set,
-                                  name=name).synchronize()
+    del name
+    _check_sparse_op(op, rows)
+    return _sparse_allreduce_now(rows, op,
+                                 _resolve(process_set)).synchronize()
 
 
 def sparse_allreduce_to_dense(grad: torch.Tensor, max_rows: int, *,

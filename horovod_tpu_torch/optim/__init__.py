@@ -20,11 +20,23 @@ the parameters' gradients over the ranks while the backward pass runs:
   one set of coefficients per gradient, its buckets started in the
   backward pass as the others; it takes no scale factors and ignores the
   compressor, as the reference's eager Adasum does.
+* A bucket goes through the fusion cycle (``ops/fusion_cycle.py``): it
+  is queued as one grouped entry and flushed at once (the ``bucket``
+  trigger), and the pipelined executor issues it on its own thread and
+  stream while the backward pass goes on. Adasum, a custom compressor,
+  ``mesh_spec`` and ``HVD_CYCLE_TIME=0`` issue at once instead.
 * Under a negotiation service (``engine_service.py``) each bucket
-  negotiates: its hook submits the request, without waiting for a KV
-  round, and the bucket is issued at the next bucket's start (waiting for
-  its plan there) or at ``synchronize()``. With ``hvd.join()``, a rank
-  whose data ran out sends zeros in its place.
+  negotiates: its flush submits the request without waiting for a KV
+  round, and the executor issues the bucket in the agreed order once its
+  plan has arrived. With ``hvd.join()``, a rank whose data ran out sends
+  zeros in its place.
+* With ``HVD_STEP_CAPTURE=1`` the buckets of a pass form a capture region
+  (``ops/step_capture.auto_region``) unless a user's
+  ``hvd.step_marker()`` region is open: the first pass is recorded, and
+  every later pass's sync replays as one CUDA Graph once its last bucket
+  arrives. The reduced gradients are written into ``.grad`` in place;
+  keep them there (``zero_grad(set_to_none=False)``): a gradient at a new
+  address is a divergence, which runs that pass eagerly.
 * ``mesh_spec`` (a ``parallel.mesh.MeshLayout``) reduces every bucket
   two-level over the layout (the node, then ``dcn``): the reference's
   composed step, whose ``pmean`` over the ``seq`` or ``expert`` axis comes
@@ -45,7 +57,7 @@ import weakref
 
 import torch
 
-from ..ops import collectives
+from ..ops import collectives, fusion_cycle, step_capture
 from ..ops import sparse as sparse_ops
 from ..ops.compression import Compression, Compressor
 from ..ops.reduce_ops import ReduceOp
@@ -181,6 +193,7 @@ class DistributedOptimizer:
         self._acc: dict = {}  # id(p) -> float32 running mean of passes
         self._micro = 0  # passes folded since the last reducing step
         self._synced = False
+        self._region = None  # the pass's step-capture region, while open
         self._reset_pass()
         # every rank is in the global set: no runtime query before init()
         self._member = process_set is None or self._pset.included()
@@ -236,15 +249,27 @@ class DistributedOptimizer:
 
     def _start(self, b: int) -> None:
         grads = [self._grad(self._dense[i]) for i in self._buckets[b]]
-        if self._reducer is None:
-            self._reducer = (collectives._reducer(self._pset, self._op),
-                             self._pset.size())
-        reduce, size = self._reducer
-        self._handles[b] = collectives._reduce_async(
-            grads, op=self._op, prescale_factor=self._pre,
-            postscale_factor=self._post, compression=self._compression,
-            size=size, reduce=reduce,
-            negotiate=self._pset if self._negotiate else None)
+        h = None
+        if self._negotiate:  # not mesh_spec's composed reducer
+            if b == 0 and self._region is None:
+                self._region = step_capture.auto_region().__enter__()
+            h = fusion_cycle.queue_allreduce(
+                grads, grouped=True, op=self._op, process_set=self._pset,
+                prescale_factor=self._pre, postscale_factor=self._post,
+                compression=self._compression)
+        if h is not None:
+            h.flush()  # the bucket trigger: issued now, in bucket order
+            self._handles[b] = h
+        else:
+            if self._reducer is None:
+                self._reducer = (collectives._reducer(self._pset, self._op),
+                                 self._pset.size())
+            reduce, size = self._reducer
+            self._handles[b] = collectives._reduce_async(
+                grads, op=self._op, prescale_factor=self._pre,
+                postscale_factor=self._post, compression=self._compression,
+                size=size, reduce=reduce,
+                negotiate=self._pset if self._negotiate else None)
         if b:
             # a negotiated bucket is issued at the next one's start, or at
             # synchronize(): a point of the program, the same on every rank
@@ -293,9 +318,14 @@ class DistributedOptimizer:
             sparse = [(p, self._sparse_sync(p, rows))
                       for p, rows in self._sparse]
             self.stats["started_in_backward"].append(self._in_backward)
-            for idxs, h in zip(self._buckets, self._handles):
-                for i, r in zip(idxs, h.synchronize()):
-                    self._dense[i].grad = r
+            try:
+                for idxs, h in zip(self._buckets, self._handles):
+                    for i, r in zip(idxs, h.synchronize()):
+                        _set_grad(self._dense[i], r)
+            finally:
+                if self._region is not None:
+                    region, self._region = self._region, None
+                    region.__exit__(None, None, None)
             for p, r in sparse:
                 p.grad = r
         self._reset_pass()
@@ -314,6 +344,18 @@ class DistributedOptimizer:
         self._micro = 0
         self._acc = {}
         return self.optimizer.step(closure)
+
+
+def _set_grad(p, r) -> None:
+    """``p.grad = r``, written into the gradient in place where one of its
+    shape and dtype is there: the gradients keep their addresses from
+    step to step (which a captured step's CUDA Graph reads), as the DDP
+    reducer's gradient views do."""
+    g = p.grad
+    if g is None or g is r or g.shape != r.shape or g.dtype != r.dtype:
+        p.grad = r
+    else:
+        g.copy_(r)
 
 
 def _flatten(x):

@@ -43,6 +43,7 @@ import torch.distributed as dist
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.program_issue import ordered
 from .sequence import group_rank, group_size
 
 
@@ -80,21 +81,24 @@ class _Pipeline(torch.autograd.Function):
             h = micro[m]
             if r > 0:
                 h = torch.empty_like(micro[m])
-                dist.recv(h, _peer(group, r - 1), group)
+                with ordered():
+                    dist.recv(h, _peer(group, r - 1), group)
             h = h.detach().requires_grad_()
             with torch.enable_grad():
                 out = run(h).to(x.dtype)
             ins.append(h)
             outs.append(out)
             if r < n - 1:
-                sends.append(dist.isend(out.detach().contiguous(),
-                                        _peer(group, r + 1), group))
+                with ordered():
+                    sends.append(dist.isend(out.detach().contiguous(),
+                                            _peer(group, r + 1), group))
         _wait(sends)
         ctx.ins, ctx.outs = ins, outs
         done = torch.cat([o.detach() for o in outs]) if r == n - 1 else \
             x.new_empty((x.shape[0],) + tuple(micro.shape[2:]))
         if n > 1:
-            dist.broadcast(done, _peer(group, n - 1), group)
+            with ordered():
+                dist.broadcast(done, _peer(group, n - 1), group)
         return done
 
     @staticmethod
@@ -104,7 +108,8 @@ class _Pipeline(torch.autograd.Function):
         n_micro = len(ctx.ins)
         if n > 1:  # the last stage takes the mean of the replicas'
             g = g.contiguous().clone()
-            dist.all_reduce(g, group=group)
+            with ordered():
+                dist.all_reduce(g, group=group)
             g = g / n
         g_micro = microbatch(g, n_micro)
         grads = [None] * len(params)
@@ -115,7 +120,8 @@ class _Pipeline(torch.autograd.Function):
             else:
                 gm = torch.empty(ctx.shape, dtype=ctx.dtype,
                                  device=g.device)
-                dist.recv(gm, _peer(group, r + 1), group)
+                with ordered():
+                    dist.recv(gm, _peer(group, r + 1), group)
             got = torch.autograd.grad(ctx.outs[m], (ctx.ins[m], *params),
                                       gm, allow_unused=True)
             ctx.outs[m] = None  # free the microbatch's graph
@@ -123,8 +129,9 @@ class _Pipeline(torch.autograd.Function):
                      for a, b in zip(grads, got[1:])]
             gh = torch.zeros_like(ctx.ins[m]) if got[0] is None else got[0]
             if r > 0:
-                sends.append(dist.isend(gh.contiguous(), _peer(group, r - 1),
-                                        group))
+                with ordered():
+                    sends.append(dist.isend(gh.contiguous(),
+                                            _peer(group, r - 1), group))
             else:
                 dx[m] = gh
         _wait(sends)
@@ -134,7 +141,8 @@ class _Pipeline(torch.autograd.Function):
                   torch.zeros((n_micro * ctx.shape[0],) + tuple(
                       ctx.shape[1:]), dtype=ctx.dtype, device=g.device))
             if n > 1:  # every stage holds the whole input cotangent
-                dist.all_reduce(gx, group=group)
+                with ordered():
+                    dist.all_reduce(gx, group=group)
         return (gx, None, None, None, *grads)
 
 

@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..ops import flash
+from ..ops import flash, program_issue
 from ..ops.flash import NEG_INF
 
 
@@ -59,6 +59,7 @@ def _wait(works) -> None:
         w.wait()
 
 
+@program_issue.issue_serialized
 def _route(sends, recvs, group) -> list:
     """One exchange of pieces between the ranks of ``group``, every send and
     receive posted in one ``batch_isend_irecv``. ``sends`` holds ``(tensor,
@@ -88,6 +89,7 @@ def _route(sends, recvs, group) -> list:
     return [outs[tag] for _, _, tag in recvs]
 
 
+@program_issue.issue_serialized
 def _ring_pass_start(tensors, group, first_tag: int = 0):
     """Start one rotation of the ring: each tensor goes to rank ``(r + 1) %
     n`` of the group and its counterpart comes from rank ``(r - 1) % n``,
@@ -160,6 +162,7 @@ def zigzag_schedule(rank: int, n: int, c: int) -> list:
 # --------------------------------------------------------------------------
 
 
+@program_issue.issue_serialized
 def _all_to_all(buf, group):
     """Chunk j of ``buf`` (its dim 0 is the group size) goes to rank j; the
     result holds in chunk j what rank j sent. ``all_to_all_single`` is the

@@ -193,3 +193,5 @@ def remove_process_set(process_set: ProcessSet) -> None:
     """Unregister a process set and end its group. Every rank calls it, in
     the same order as the other registrations."""
     runtime.process_set_table().remove(process_set)
+    from .ops import dispatch_cache  # its plans name the set's id
+    dispatch_cache.invalidate("process set removed")

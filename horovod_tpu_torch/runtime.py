@@ -42,6 +42,7 @@ class _RuntimeState:
 
 
 _state: _RuntimeState | None = None
+_generation = 0  # moves at every init(): plans of an older world are stale
 
 
 def init(device: str | torch.device | None = None,
@@ -52,7 +53,7 @@ def init(device: str | torch.device | None = None,
     now (every rank passes the same list), or ``"dynamic"`` to allow
     ``add_process_set`` later, as ``HVD_DYNAMIC_PROCESS_SETS=1`` does.
     Calling it again while initialized is a no-op."""
-    global _state
+    global _state, _generation
     if _state is not None:
         return
     device = torch.device("cuda" if device is None else device)
@@ -97,6 +98,7 @@ def init(device: str | torch.device | None = None,
         dist.all_gather_object(local_sizes, local_size)
     from .process_sets import ProcessSetTable  # deferred: avoids a cycle
     table = ProcessSetTable(size)
+    _generation += 1
     _state = _RuntimeState(device=device, rank=dist.get_rank(), size=size,
                            local_rank=local_rank, local_size=local_size,
                            owns_group=owns, process_set_table=table,
@@ -123,7 +125,14 @@ def shutdown() -> None:
     if _state is None:
         return
     from . import conformance, engine_service  # deferred: they import it
+    from .ops import dispatch_cache, fusion_cycle
+    # queued collectives are issued, not dropped, while the world stands
+    try:
+        fusion_cycle.drain()
+    except Exception:
+        hvd_logging.exception("fusion cycle drain at shutdown failed")
     engine_service.reset_service()  # before the groups its joins may use
+    dispatch_cache.invalidate("runtime shutdown")
     # the trace goes out last: the teardown above records events too
     conformance.maybe_dump("shutdown")
     conformance.reset()
@@ -136,6 +145,12 @@ def shutdown() -> None:
         if _state.owns_group:
             dist.destroy_process_group()
     _state = None
+
+
+def generation() -> int:
+    """How many times :func:`init` has joined a world in this process: the
+    dispatch plan cache drops its plans when it moves."""
+    return _generation
 
 
 def is_initialized() -> bool:

@@ -13,7 +13,14 @@ over a bounded queue, one lane per tensor name), bound through
   ``REDUCESCATTER``) around its issue (:class:`op_range`);
 * instants on the ``health`` lane (``RETRY``, ``PEER_DEAD``, ``POISON``,
   ``STRAGGLER``, ``RC_JOIN_RACE``) and, with ``HVD_TIMELINE_MARK_CYCLES``,
-  a ``CYCLE`` instant per negotiation cycle.
+  a ``CYCLE`` instant per negotiation cycle;
+* the fusion and plan machinery's, under the JAX package's names:
+  ``QUEUE_ENQUEUE`` on a tensor's lane, ``CYCLE_FLUSH.<trigger>`` on the
+  ``fusion_cycle`` lane, ``INFLIGHT_DEPTH.<n>`` and ``PIPELINE_<stage>``
+  ranges on the ``pipeline`` lane, ``QOS_<event>.<tenant>`` on the ``qos``
+  lane, ``CAPTURE_<event>`` (``RECORD``, ``SEAL``, ``REPLAY``,
+  ``REPLAY_DONE``, ``BYPASS``, ``FALLBACK``) on the ``step_capture`` lane
+  and ``PLAN_HIT``/``PLAN_MISS`` on an op's lane.
 
 **Host clock, never the device's.** A record takes the host's steady clock
 and never synchronizes the card: an activity is the host-side range around
@@ -45,6 +52,12 @@ RETRY = "RETRY"
 PHASE_BEGIN = 0
 PHASE_END = 1
 PHASE_INSTANT = 2
+QUEUE_ENQUEUE = "QUEUE_ENQUEUE"
+CYCLE_FLUSH = "CYCLE_FLUSH"
+PIPELINE_LANE = "pipeline"
+INFLIGHT_DEPTH = "INFLIGHT_DEPTH"
+QOS_LANE = "qos"
+CAPTURE_LANE = "step_capture"
 
 
 def _get_engine():
@@ -134,6 +147,55 @@ def record_health_event(event: str) -> None:
     ``STRAGGLER.<rank>``, ``RC_JOIN_RACE``)."""
     if _active:
         record(HEALTH_LANE, event, PHASE_INSTANT)
+
+
+def record_dispatch(tensor: str, hit: bool) -> None:
+    """A ``PLAN_HIT``/``PLAN_MISS`` instant on the op's lane
+    (``ops/dispatch_cache.py``)."""
+    if _active:
+        record(tensor, "PLAN_HIT" if hit else "PLAN_MISS", PHASE_INSTANT)
+
+
+def record_queue_enqueue(tensor: str) -> None:
+    """A ``QUEUE_ENQUEUE`` instant on the tensor's lane when an async
+    submission lands in a fusion-cycle queue."""
+    if _active:
+        record(tensor, QUEUE_ENQUEUE, PHASE_INSTANT)
+
+
+def record_cycle_flush(trigger: str) -> None:
+    """A ``CYCLE_FLUSH.<trigger>`` instant on the ``fusion_cycle`` lane,
+    one a flush."""
+    if _active:
+        record("fusion_cycle", f"{CYCLE_FLUSH}.{trigger}", PHASE_INSTANT)
+
+
+def record_inflight_depth(depth: int) -> None:
+    """An ``INFLIGHT_DEPTH.<n>`` instant on the ``pipeline`` lane when the
+    flush executor admits a batch: ``n`` earlier flushes were still
+    incomplete on the device."""
+    if _active:
+        record(PIPELINE_LANE, f"{INFLIGHT_DEPTH}.{int(depth)}",
+               PHASE_INSTANT)
+
+
+def record_qos(event: str, tenant: str) -> None:
+    """A ``QOS_<event>.<tenant>`` instant on the ``qos`` lane (``PARK``,
+    ``GRANT``, ``FORCE``, ``SHED``, ``BLOCK``)."""
+    if _active:
+        record(QOS_LANE, f"QOS_{event}.{tenant}", PHASE_INSTANT)
+
+
+def record_capture(event: str) -> None:
+    """A ``CAPTURE_<event>`` instant on the ``step_capture`` lane."""
+    if _active:
+        record(CAPTURE_LANE, f"CAPTURE_{event}", PHASE_INSTANT)
+
+
+def pipeline_stage(stage: str) -> "op_range":
+    """A ``PIPELINE_<stage>`` range on the ``pipeline`` lane (``SLOT_WAIT``:
+    the executor blocked on the device; ``DISPATCH``: a chunk's issue)."""
+    return op_range(PIPELINE_LANE, f"PIPELINE_{stage}")
 
 
 def merge_timelines(inputs, output: str) -> int:

@@ -57,6 +57,31 @@ RETRY_MAX_ATTEMPTS = "RETRY_MAX_ATTEMPTS"  # attempts per retried KV call
 RETRY_BACKOFF_MS = "RETRY_BACKOFF_MS"  # backoff before the first retry
 RETRY_MAX_BACKOFF_MS = "RETRY_MAX_BACKOFF_MS"  # backoff growth cap
 RETRY_JITTER = "RETRY_JITTER"  # +/- fraction of deterministic jitter on backoff
+# The fusion and plan machinery (ops/fusion_cycle.py, ops/dispatch_cache.py,
+# ops/step_capture.py, qos.py, autotune.py, utils/invariants.py)
+FUSION_MAX_PENDING = "FUSION_MAX_PENDING"  # bytes; fusion-cycle backpressure cap (default 4x FUSION_THRESHOLD)
+MAX_INFLIGHT_FLUSHES = "MAX_INFLIGHT_FLUSHES"  # pipelined flush executor slots (0/1 = synchronous)
+PIPELINE_THRESHOLD = "PIPELINE_THRESHOLD"  # bytes; fused wire buffers past this split into chunks
+PIPELINE_CHUNKS = "PIPELINE_CHUNKS"  # chunk count for the large-buffer software pipeline
+CACHE_CAPACITY = "CACHE_CAPACITY"  # dispatch plans kept (reference default 1024; 0 = off)
+STEP_CAPTURE = "STEP_CAPTURE"  # capture-and-replay of the per-step collective stream (0 = off)
+DEBUG_INVARIANTS = "DEBUG_INVARIANTS"  # dev-mode runtime invariant checker
+QOS = "QOS"  # multi-tenant QoS collective engine (0 = single-tenant FIFO)
+QOS_WINDOW = "QOS_WINDOW"  # arbitration window: parked batches before a pump grants
+QOS_QUANTUM = "QOS_QUANTUM"  # DRR quantum bytes credited per weight unit per round
+QOS_STARVE_LIMIT = "QOS_STARVE_LIMIT"  # grants between forced oldest-first grants (0 = off)
+QOS_DEFAULT_PRIORITY = "QOS_DEFAULT_PRIORITY"  # tier for unconfigured tenants
+QOS_DEFAULT_WEIGHT = "QOS_DEFAULT_WEIGHT"  # DRR weight for unconfigured tenants
+QOS_PENDING_QUOTA = "QOS_PENDING_QUOTA"  # default per-tenant pending-bytes quota (0 = unlimited)
+QOS_SHED_POLICY = "QOS_SHED_POLICY"  # quota policy for unconfigured tenants: block | shed
+QOS_CLASSES = "QOS_CLASSES"  # per-tenant class spec string (the JAX package's docs/qos.md grammar)
+AUTOTUNE = "AUTOTUNE"
+AUTOTUNE_STRATEGY = "AUTOTUNE_STRATEGY"  # coordinate (default) | bayesian
+AUTOTUNE_LOG = "AUTOTUNE_LOG"
+AUTOTUNE_WARMUP_SAMPLES = "AUTOTUNE_WARMUP_SAMPLES"
+AUTOTUNE_STEPS_PER_SAMPLE = "AUTOTUNE_STEPS_PER_SAMPLE"
+AUTOTUNE_BAYES_OPT_MAX_SAMPLES = "AUTOTUNE_BAYES_OPT_MAX_SAMPLES"
+AUTOTUNE_GAUSSIAN_PROCESS_NOISE = "AUTOTUNE_GAUSSIAN_PROCESS_NOISE"
 
 _PREFIXES = ("HVD_", "HOROVOD_")
 
@@ -103,6 +128,12 @@ def clear_overrides() -> None:
     if _overrides:
         _override_epoch += 1
     _overrides.clear()
+
+
+def is_env_fixed(name: str) -> bool:
+    """True when the user pinned knob ``name`` in the environment: the
+    autotuner treats it as untunable (reference ``operations.cc:490-523``)."""
+    return any(os.environ.get(p + name) is not None for p in _PREFIXES)
 
 
 def get(name: str, default: str | None = None) -> str | None:
@@ -251,3 +282,78 @@ def response_cache_capacity(world_size: int | None = None) -> int:
     if v <= 0:
         return 0
     return DEFAULT_RESPONSE_CACHE_CAPACITY if v == 1 else v
+
+
+# The fusion cycle and its pipelined executor (the JAX package's defaults,
+# envs.py:282-346): the cycle is on while HVD_CYCLE_TIME > 0 (1 ms, the
+# reference's default); two in-flight flushes double-buffer the executor;
+# fused wire buffers past 4 MiB issue as 4 chunk collectives.
+DEFAULT_CYCLE_TIME_MS = 1.0
+DEFAULT_CACHE_CAPACITY = 1024
+DEFAULT_MAX_INFLIGHT_FLUSHES = 2
+DEFAULT_PIPELINE_THRESHOLD_BYTES = 4 * 1024 * 1024
+DEFAULT_PIPELINE_CHUNKS = 4
+DEFAULT_QOS_WINDOW = 4
+DEFAULT_QOS_QUANTUM = 64 * 1024
+DEFAULT_QOS_STARVE_LIMIT = 16
+DEFAULT_QOS_WEIGHT = 1.0
+
+
+def cycle_time_ms() -> float:
+    """The fusion cycle's pace (``HVD_CYCLE_TIME``, ms; 0 turns the cycle
+    off). The negotiation service reads the same knob with its own
+    default (``engine_service.DEFAULT_KV_CYCLE_TIME_MS``)."""
+    return get_float(CYCLE_TIME, DEFAULT_CYCLE_TIME_MS)
+
+
+def cache_capacity() -> int:
+    return get_int(CACHE_CAPACITY, DEFAULT_CACHE_CAPACITY)
+
+
+def max_inflight_flushes() -> int:
+    return get_int(MAX_INFLIGHT_FLUSHES, DEFAULT_MAX_INFLIGHT_FLUSHES)
+
+
+def pipeline_enabled() -> bool:
+    """The pipelined flush executor is engaged at >= 2 slots; 0/1 execute
+    a flush on the thread that triggered it."""
+    return max_inflight_flushes() >= 2
+
+
+def pipeline_threshold_bytes() -> int:
+    return get_int(PIPELINE_THRESHOLD, DEFAULT_PIPELINE_THRESHOLD_BYTES)
+
+
+def pipeline_chunks() -> int:
+    return get_int(PIPELINE_CHUNKS, DEFAULT_PIPELINE_CHUNKS)
+
+
+def pipeline_chunking_enabled() -> bool:
+    """Chunked dispatch of large wire buffers rides the pipelined
+    executor: with it off, a flush issues one collective a buffer."""
+    return (pipeline_enabled() and pipeline_threshold_bytes() > 0
+            and pipeline_chunks() >= 2)
+
+
+def qos_enabled() -> bool:
+    """The multi-tenant QoS engine (``qos.py``); off by default."""
+    return get_bool(QOS, False)
+
+
+def qos_window() -> int:
+    return get_int(QOS_WINDOW, DEFAULT_QOS_WINDOW)
+
+
+def qos_quantum_bytes() -> int:
+    return get_int(QOS_QUANTUM, DEFAULT_QOS_QUANTUM)
+
+
+def qos_starve_limit() -> int:
+    return get_int(QOS_STARVE_LIMIT, DEFAULT_QOS_STARVE_LIMIT)
+
+
+def step_capture_enabled() -> bool:
+    """Step capture-and-replay (``ops/step_capture.py``); off by default,
+    and off while the QoS engine is on (capture assumes one repeating
+    single-tenant flush stream), as in the JAX package."""
+    return get_bool(STEP_CAPTURE, False) and not qos_enabled()

@@ -1068,3 +1068,138 @@ def test_cuda_nccl_world4_timeline_files(four_cards, tmp_path):
                  for name in TIMELINE_NAMES}
         print(f"rank {r}: allreduce issue ranges (us) "
               f"{ {n: t[1] - t[0] for n, t in spans.items()} }")
+
+
+# --------------------------------------------------------------------------
+# the fusion cycle and step capture on the card (ops/fusion_cycle.py,
+# ops/step_capture.py)
+# --------------------------------------------------------------------------
+
+
+def _capture_trainer(steps: int, capture: bool, move_at: int = -1):
+    """A 2-layer TransformerLM at the kernels' head dim (bf16, d_model 512,
+    8 heads, ulysses over a group of one) on 2 x 512 tokens, SGD with
+    momentum, ``steps`` steps with the gradients kept in place, but at step
+    ``move_at``, where each gradient moves to a new address (the old one
+    kept alive, so that the allocator cannot hand it back): the
+    parameters after them and the capture stats."""
+    import os
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import (TransformerConfig, TransformerLM,
+                                          lm_loss)
+    from horovod_tpu_torch.ops import dispatch_cache, fusion_cycle
+    os.environ["HVD_STEP_CAPTURE"] = "1" if capture else "0"
+    fusion_cycle.reset()
+    dispatch_cache.reset()
+    cfg = TransformerConfig(vocab_size=1000, num_layers=2, max_seq_len=512,
+                            attn_mode="ulysses")
+    model = TransformerLM(cfg, device=hvd.device())
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    # SGD and a postscale of 1/2: at a world of one the reduction is then
+    # no identity, and an update that read the gradients before the
+    # replay wrote them would differ
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        postscale_factor=0.5)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 1000, size=(2, 512))).to(hvd.device())
+    kept = []
+    for i in range(steps):
+        opt.zero_grad(set_to_none=False)
+        if i == move_at:
+            for p in model.parameters():
+                kept.append(p.grad)
+                p.grad = torch.zeros_like(p)
+        lm_loss(model(tokens), tokens).backward()
+        opt.step()
+    torch.cuda.synchronize()
+    params = [p.detach().clone() for p in model.parameters()]
+    return params, hvd.fusion_stats()["capture"]
+
+
+@pytest.mark.cuda
+def test_cuda_capture_world1_replays_one_graph_a_step(cuda_world,
+                                                      monkeypatch):
+    """At an NCCL world of one: the first step records, every later step
+    replays one CUDA Graph of the step's sync, nothing diverges, and the
+    parameters equal the eager run's bit for bit (or lie within the eager
+    run's own spread, were it not bitwise equal to itself)."""
+    monkeypatch.setenv("HVD_BUCKET_BYTES", str(8 << 20))
+    eager, _ = _capture_trainer(5, False)
+    again, _ = _capture_trainer(5, False)
+    got, st = _capture_trainer(5, True)
+    spread = max((a - b).abs().max().item() for a, b in zip(eager, again))
+    diff = max((a - b).abs().max().item() for a, b in zip(eager, got))
+    print(f"capture {st}; parameters against eager {diff:.3g}, eager "
+          f"against itself {spread:.3g}")
+    assert st["recorded_steps"] == 1 and st["replayed_steps"] == 4
+    assert st["graph_launches"] == 4 and st["fallbacks"] == 0
+    assert diff == 0.0 or diff <= spread
+
+
+@pytest.mark.cuda
+def test_cuda_capture_world1_moved_gradient_is_a_divergence(cuda_world,
+                                                            monkeypatch):
+    """A gradient at a new address (here every one, at step 3): the graph
+    reads fixed ones, so that replay is a divergence, counted, and runs
+    eagerly with the eager run's result; the next step records again and
+    the one after replays a graph of the new addresses."""
+    monkeypatch.setenv("HVD_BUCKET_BYTES", str(8 << 20))
+    eager, _ = _capture_trainer(6, False, move_at=3)
+    got, st = _capture_trainer(6, True, move_at=3)
+    print(f"capture with moved gradients: {st}")
+    assert st["fallbacks"] == 1 and st["moved_inputs"] == 1
+    assert st["recorded_steps"] == 2 and st["replayed_steps"] == 3
+    for a, b in zip(eager, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_capture_trainer_bitwise(four_cards, tmp_path):
+    """Four cards, the full-width trainer data-parallel (8 x 2048 tokens a
+    card): capture off twice and on from one seed; the captured run
+    records once and replays one CUDA Graph a step after, and its
+    parameters equal the eager run's (bitwise, or within the eager run's
+    own spread). Then the step with capture off and on in turns; rank 0's
+    profiled steps give the first NCCL kernel's start against the
+    backward pass's last kernel in each mode."""
+    import json
+
+    from test_torch_world2 import run_world
+    ranks = run_world("_card_capture_rank", tmp_path, size=4,
+                      module="test_torch_fusion_world")
+    for r, res in enumerate(ranks):
+        st = json.loads(str(res["capture"]))
+        spread = float(np.abs(res["off"] - res["again"]).max())
+        diff = float(np.abs(res["off"] - res["on"]).max())
+        turns = json.loads(str(res["turns"]))
+        print(f"rank {r}: capture {st}; parameters against eager {diff:.3g}"
+              f" (eager spread {spread:.3g}); step ms off {turns['off']}, "
+              f"on {turns['on']}; overlap {turns['overlap']}")
+        assert st["replayed_steps"] >= 1 and st["fallbacks"] == 0, r
+        assert st["graph_launches"] == st["replayed_steps"], r
+        assert int(res["turn_fallbacks"]) == 0, r
+        assert diff == 0.0 or diff <= spread, r
+        np.testing.assert_array_equal(res["on"], ranks[0]["on"])
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_negotiated_capture_rounds(four_cards, tmp_path):
+    """Four cards under the KV negotiation service, the full-width
+    trainer's step with capture off (the flat negotiated step) and on, in
+    turns: a replayed step takes one ``negotiate_step`` round; busy rounds
+    and step times of both modes are printed."""
+    import json
+
+    from test_torch_world2 import run_world
+    ranks = run_world("_card_svc_capture_rank", tmp_path, size=4,
+                      module="test_torch_fusion_world", kv=True)
+    for r, res in enumerate(ranks):
+        turns = json.loads(str(res["turns"]))
+        st = json.loads(str(res["capture"]))
+        print(f"rank {r}: off {turns['off']}; on {turns['on']}; capture "
+              f"{st}")
+        assert np.isfinite(res["losses"]).all(), r
+        assert st["fallbacks"] == 0, r
+        assert turns["on"]["step_rounds"] == [1] * len(turns["on"]["ms"]), r

@@ -92,18 +92,19 @@ class Halver:
 
 
 def _logged_starts(hvd):
-    """Record the shapes of every bucket sync the optimizer starts
-    (``collectives._reduce_async``, the body of
-    ``grouped_allreduce_async``), in issue order."""
-    from horovod_tpu_torch.ops import collectives
-    log, real = [], collectives._reduce_async
+    """Record the shapes of every bucket sync the optimizer starts (its
+    submission to the fusion cycle, ``fusion_cycle.queue_allreduce``,
+    which the bucket's flush and the executor's FIFO issue in the same
+    order), in start order."""
+    from horovod_tpu_torch.ops import fusion_cycle
+    log, real = [], fusion_cycle.queue_allreduce
 
     def logged(tensors, **kw):
         log.append([tuple(t.shape) for t in tensors])
         return real(tensors, **kw)
 
-    collectives._reduce_async = logged
-    return log, lambda: setattr(collectives, "_reduce_async", real)
+    fusion_cycle.queue_allreduce = logged
+    return log, lambda: setattr(fusion_cycle, "queue_allreduce", real)
 
 
 def run_multisteps(hvd, k: int, dev) -> dict:
