@@ -92,6 +92,25 @@ Phases, each of which exits non-zero on failure:
    (``FUSION_TURNS`` pairs), one profiled step under capture, and
    ResNet-50's ``synchronize()`` alone (161 gradients, bf16) with capture
    off and on in turns, in host ms and CUDA-event ms a call;
+7e. cached step: the trainer (as in 7d, with ``Adam(capturable=True)``)
+   twice eagerly (its own spread), then under ``hvd.cached_step`` with a
+   fresh closure every step: step 1 runs eagerly and captures the whole
+   step (forward, loss, backward, the gradient sync and Adam) into one
+   CUDA Graph, steps 2-5 replay it. One plan, one record, at least 4
+   replays, no fallback, a falling loss, and the parameters after the
+   steps equal to the eager run's bit for bit (or, were the eager run not
+   bitwise equal to itself, within its own spread); K1-K3 ``num_layers``
+   times at each capture and by name in one profiled replay. A second
+   batch shape (4 x 2048) records a second graph and both replay. Then
+   the step eagerly and cached in turns, one profiled step of each (the
+   device's busy share), and each run's peak memory;
+7f. checkpoint: the cached trainer under ``elastic.TorchState``,
+   committing every step with the state plane on (``HVD_CKPT_DIR`` in a
+   temporary directory, interval 1): each commit's time, the background
+   snapshot's time and size, a ``Checkpointer`` save; a fresh model and
+   optimizer restored from the sealed step (``sharded_restore_or_none``)
+   and another from the ``Checkpointer`` each take 2 more steps, and their
+   parameters must equal the uninterrupted run's bit for bit;
 8. pipeline: the pipeline twin (``examples/pipeline_train.py --model
    full``: vocab 32000, d_model 512, hidden 2048, 4 residual-MLP blocks, 8
    x 2048 tokens, bf16) at pp 1 with 4 microbatches for 5 steps: the loss
@@ -138,9 +157,10 @@ object (each run's step time, tokens/s, peak memory, losses and buckets,
 with the per-step count of buckets started during the backward pass), a
 ``{"moe": ..., "pipeline": ...}`` one, one ``{"kernels": [...]}`` JSON
 object (each kernel's launches on the trainer's, the k=2 run's, the
-Adasum run's, the negotiation phase's, the fusion phase's and the MoE
-run's main path), preceded by ``{"adasum": ...}``, ``{"negotiation":
-...}`` and ``{"fusion": ...}``,
+Adasum run's, the negotiation phase's, the fusion phase's, the cached
+step's and the MoE run's main path), preceded by ``{"adasum": ...}``,
+``{"negotiation": ...}``, ``{"fusion": ...}`` and ``{"cached_step": ...,
+"checkpoint": ...}``,
 the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -692,7 +712,16 @@ def _profile_step(step, overlap: bool = False,
         print(f"[profile] by kind: {ms:8.3f} ms x{n:<5d} "
               f"({100 * ms / busy_ms:.1f} % of busy) {kind}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "overlap": found,
-            "kinds": {k: ms for k, (ms, _) in by_kind.items()}}
+            "kinds": {k: ms for k, (ms, _) in by_kind.items()},
+            "flash_kernels": _flash_named(kernels)}
+
+
+def _flash_named(events) -> dict:
+    """K1-K3's device launches among a profile's kernel events, counted
+    by the kernels' names (``hvdflash``)."""
+    return {name: sum(e.count for e in events
+                      if "hvdflash" in e.key and name in e.key)
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
 
 def _bucket_report(opt) -> dict:
@@ -1522,6 +1551,421 @@ def phase_fusion(dev):
 
 
 
+# the cached trainer's step, eager and cached in turns, CACHED_TURN_STEPS a turn
+CACHED_TURNS = ["eager", "cached", "cached", "eager"] * 2
+CACHED_TURN_STEPS = 4
+
+
+def _cached_trainer(dev):
+    """The trainer at full width (bf16, ulysses, NCCL world 1) with
+    ``DistributedOptimizer(Adam(capturable=True))`` from the trainer phase's
+    seed, its gradients kept in place, and its step as a function that
+    builds a fresh closure over them on every call (the re-created-closure
+    pattern ``hvd.cached_step`` keys on)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import (TransformerConfig, TransformerLM,
+                                          lm_loss)
+    cfg = TransformerConfig(attn_mode="ulysses")
+    model = TransformerLM(cfg, device=dev)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-3, capturable=True))
+
+    def make_step():
+        def train_step(tokens):
+            opt.zero_grad(set_to_none=False)
+            loss = lm_loss(model(tokens), tokens)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+        return train_step
+
+    return cfg, model, opt, make_step
+
+
+def phase_cached_step(dev):
+    """The whole trainer step as one CUDA Graph (``hvd.cached_step``). The
+    eager trainer twice (its own spread), then the same trainer with a
+    fresh ``cached_step`` closure every step: step 1 runs eagerly and
+    captures, steps 2-STEPS replay under the profiler. One plan, one
+    record, no fallback, a falling loss, and the parameters equal to the
+    eager run's. K1-K3's launches on this path are the record's eager run
+    (the wrappers' counters: ``num_layers`` each) and, in the replays,
+    the kernels counted by name in the profile (``num_layers`` each a
+    replay; the counters stand still there, since a replay launches
+    through the graph). Each capture's counter steps are checked apart:
+    a capture records ``num_layers`` of each and launches nothing. A
+    second batch shape records a second graph, and both replay. Then the
+    step eager and cached in turns, one profiled step of each, and each
+    run's peak memory."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import (dispatch_cache, flash,
+                                       gspmd_cache)
+    hvd.init()
+    require(hvd.size() == 1 and hvd.device() == dev, "init(): not world 1")
+    tokens = torch.from_numpy(synthetic_tokens(BATCH, SEQ, 32000, 0)).to(dev)
+    runs = {}
+    for name in ("eager", "eager_again"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, model, opt, make_step = _cached_trainer(dev)
+        flash.reset_launch_counts()
+        losses, step_s = [], []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            losses.append(make_step()(tokens).item())
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        runs[name] = {"losses": losses, "step_s": step_s,
+                      "launches": dict(flash.launches),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "params": [p.detach().clone()
+                                 for p in model.parameters()]}
+        del model, opt, make_step
+        torch.cuda.empty_cache()
+    # the cached run; each capture's launches are counted apart
+    dispatch_cache.reset()
+    gspmd_cache.reset_stats()
+    captures = []
+    capture = gspmd_cache.CachedStep._capture
+
+    def counted_capture(self, *args):
+        before = dict(flash.launches)
+        out = capture(self, *args)
+        captures.append({k: v - before[k] for k, v in flash.launches.items()})
+        return out
+
+    gspmd_cache.CachedStep._capture = counted_capture
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, model, opt, make_step = _cached_trainer(dev)
+        flash.reset_launch_counts()
+        losses, step_s = [], []
+
+        def cached():
+            t0 = time.perf_counter()
+            losses.append(hvd.cached_step(make_step())(tokens).item())
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+
+        cached()  # the record: its eager run, then the capture
+        record_launches = dict(flash.launches)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(STEPS - 1):
+                cached()  # the replays
+        replay_counted = {k: v - record_launches[k]
+                          for k, v in flash.launches.items()}
+        replay_named = _flash_named(
+            [e for e in prof.key_averages()
+             if "CUDA" in str(getattr(e, "device_type", ""))])
+        del prof
+        peak_cached = torch.cuda.max_memory_allocated() / 2**30
+        params = [p.detach().clone() for p in model.parameters()]
+        stats = gspmd_cache.stats()
+        # a second batch shape: a second graph; then both replay
+        half = tokens[:BATCH // 2].contiguous()
+        for toks in (half, tokens, half):
+            hvd.cached_step(make_step())(toks)
+        torch.cuda.synchronize()
+        shapes_stats = gspmd_cache.stats()
+        # eager and cached in turns on the same model
+        turns = {"eager": [], "cached": []}
+        for turn in CACHED_TURNS:
+            step = (make_step() if turn == "eager"
+                    else hvd.cached_step(make_step()))
+            for _ in range(CACHED_TURN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(tokens)
+                torch.cuda.synchronize()
+                turns[turn].append((time.perf_counter() - t0) * 1e3)
+        prof_eager = _profile_step(lambda: make_step()(tokens))
+        prof_cached = _profile_step(
+            lambda: hvd.cached_step(make_step())(tokens))
+        final_stats = gspmd_cache.stats()
+    finally:
+        gspmd_cache.CachedStep._capture = capture
+    del model, opt, make_step
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    eager, again = runs["eager"], runs["eager_again"]
+    spread = _params_diff(eager["params"], again["params"])
+    diff = _params_diff(eager["params"], params)
+    replays = stats["events"].get("replayed", 0)
+    layers = cfg.num_layers
+    at_capture = captures[0] if captures else {}
+    eager_once = {k: record_launches[k] - at_capture.get(k, 0)
+                  for k in record_launches}
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    steady = lambda st: sum(st[1:]) / (len(st) - 1) * 1e3  # noqa: E731
+    print(f"[cached_step] trainer under hvd.cached_step, a fresh closure a "
+          f"step: builds {stats['builds']}, events {stats['events']}, hits "
+          f"{stats['hits']}, passthrough syncs {stats['passthrough_syncs']}"
+          f"; losses {['%.4f' % x for x in losses]}")
+    print(f"[cached_step] step 1 (eager run and capture) "
+          f"{step_s[0] * 1e3:.1f} ms; replays (profiled) "
+          f"{['%.2f' % (x * 1e3) for x in step_s[1:]]} ms; eager steps "
+          f"2-{STEPS} {steady(eager['step_s']):.2f} ms")
+    print(f"[cached_step] parameters after {STEPS} steps against the eager "
+          f"run: max abs {diff:.3g} (the eager run against itself: "
+          f"{spread:.3g})")
+    print(f"[cached_step] K1-K3 in the cached run: the record's eager run "
+          f"{eager_once} (counters), recorded at each capture {captures}, "
+          f"in the {STEPS - 1} replays {replay_named} by name (counters "
+          f"{replay_counted}); by name in the later profiled replay "
+          f"{prof_cached['flash_kernels']}")
+    print(f"[cached_step] second batch shape {BATCH // 2} x {SEQ}: builds "
+          f"{shapes_stats['builds']}, events {shapes_stats['events']}")
+    print(f"[cached_step] step in turns (host ms, synchronized): eager "
+          f"{['%.2f' % x for x in turns['eager']]}, cached "
+          f"{['%.2f' % x for x in turns['cached']]}; medians "
+          f"{med(turns['eager']):.2f} / {med(turns['cached']):.2f} ms")
+    print(f"[cached_step] one profiled step: eager busy "
+          f"{prof_eager['busy_ms']:.2f} of {prof_eager['wall_ms']:.2f} ms "
+          f"({100 * prof_eager['busy_ms'] / prof_eager['wall_ms']:.1f} %), "
+          f"cached replay busy {prof_cached['busy_ms']:.2f} of "
+          f"{prof_cached['wall_ms']:.2f} ms ("
+          f"{100 * prof_cached['busy_ms'] / prof_cached['wall_ms']:.1f} %)")
+    print(f"[cached_step] peak memory: eager {eager['peak_gib']:.2f} GiB, "
+          f"cached {peak_cached:.2f} GiB on {torch.cuda.get_device_name(0)}")
+    require(stats["builds"] == 1 and stats["events"].get("recorded") == 1
+            and replays >= 4 and stats["events"].get("fallback", 0) == 0,
+            f"cached_step: {stats}, want 1 build, 1 record, >= 4 replays "
+            "and no fallback")
+    require(all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0], f"cached_step: losses {losses}")
+    require(diff == 0.0 or (spread > 0.0 and diff <= spread),
+            f"cached_step: parameters off by {diff:.3g} from the eager "
+            f"run, whose own spread is {spread:.3g}")
+    require(len(captures) == 2
+            and all(c.get(k) == layers for c in captures
+                    for k in flash.launches)
+            and all(eager_once[k] == layers
+                    and replay_named[k] == layers * (STEPS - 1)
+                    and replay_counted[k] == 0
+                    and prof_cached["flash_kernels"][k] == layers
+                    for k in flash.launches),
+            f"cached_step: K1-K3 in the record's eager run {eager_once}, at "
+            f"each capture {captures}, by name in the {STEPS - 1} replays "
+            f"{replay_named} (counters {replay_counted}) and in a later "
+            f"profiled replay {prof_cached['flash_kernels']}; want {layers} "
+            "each a step")
+    require(shapes_stats["builds"] == 2
+            and shapes_stats["events"].get("recorded") == 2
+            and shapes_stats["events"].get("replayed") == replays + 2
+            and shapes_stats["events"].get("fallback", 0) == 0,
+            f"cached_step: two batch shapes gave {shapes_stats}")
+    require(final_stats["events"].get("fallback", 0) == 0
+            and final_stats["builds"] == 2,
+            f"cached_step: the turns re-recorded or fell back: "
+            f"{final_stats}")
+    # the cached path's kernel launches, each measured in this run: the
+    # record's eager run by the counters, the replays by name
+    launches = {k: eager_once[k] + replay_named[k] for k in eager_once}
+    return {"step_ms": {"eager": steady(eager["step_s"]),
+                        "cached_replay_profiled":
+                            sum(step_s[1:]) / (STEPS - 1) * 1e3,
+                        "cached_record": step_s[0] * 1e3},
+            "losses": {"eager": eager["losses"], "cached": losses},
+            "stats": stats, "two_shapes": shapes_stats,
+            "params_vs_eager_max_abs": diff, "eager_spread_max_abs": spread,
+            "launches": {"record_eager": eager_once,
+                         "replays_by_name": replay_named},
+            "recorded_at_capture": at_capture,
+            "profiled_replay_flash": prof_cached["flash_kernels"],
+            "turns_ms": turns,
+            "busy": {"eager": [prof_eager["busy_ms"], prof_eager["wall_ms"]],
+                     "cached": [prof_cached["busy_ms"],
+                                prof_cached["wall_ms"]]},
+            "profile_kinds": {"eager": prof_eager["kinds"],
+                              "cached": prof_cached["kinds"]},
+            "peak_memory_gib": {"eager": eager["peak_gib"],
+                                "cached": peak_cached}}, launches
+
+
+CKPT_STEPS = 4  # committed steps of the checkpoint phase before its restores
+CKPT_AFTER = 2  # steps each restored trainer takes, and the uninterrupted one
+CKPT_SAVES = 3  # timed host copies (TorchState.save) with the writer idle
+
+
+def _ckpt_params_diff(a, b) -> float:
+    return _params_diff(a, [p.detach() for p in b.parameters()])
+
+
+def phase_checkpoint(dev):
+    """The cached trainer under ``elastic.TorchState``, committing every
+    step with the state plane on (``HVD_CKPT_DIR`` in a temporary
+    directory, ``HVD_CKPT_INTERVAL=1``): each commit's time, the
+    background snapshot's time and size; then ``save()`` alone (the host
+    copy, with the writer idle) CKPT_SAVES times; a ``Checkpointer`` save
+    of the model and optimizer at the last commit. Then the live graph
+    across an in-place restore: CKPT_AFTER replays move the model on,
+    ``restore()`` writes the last commit back into the same tensors, and
+    CKPT_AFTER more replays of the same graph (no new record, no drop)
+    retrace the first ones bit for bit and give the uninterrupted run.
+    Then a fresh model and optimizer (another seed, one step taken, so
+    that Adam has its state) restore from the sealed step
+    (``sharded_restore_or_none``, loaded in place through the state), and
+    another from the ``Checkpointer``; each takes CKPT_AFTER steps, and
+    its parameters must equal the uninterrupted run's bit for bit."""
+    import shutil
+    import tempfile
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint, metrics
+    from horovod_tpu_torch.ops import gspmd_cache
+    hvd.init()
+    require(hvd.size() == 1 and hvd.device() == dev, "init(): not world 1")
+    tokens = torch.from_numpy(synthetic_tokens(BATCH, SEQ, 32000, 0)).to(dev)
+    tmp = tempfile.mkdtemp(prefix="hvd_ckpt_")
+    plane_dir = os.path.join(tmp, "plane")
+    prior = {k: os.environ.get(k) for k in ("HVD_CKPT_DIR",
+                                            "HVD_CKPT_INTERVAL")}
+    os.environ["HVD_CKPT_DIR"] = plane_dir
+    os.environ["HVD_CKPT_INTERVAL"] = "1"
+    checkpoint.reset_plane()
+    try:
+        before = metrics.snapshot()
+        _cfg, model, opt, make_step = _cached_trainer(dev)
+        state = hvd.elastic.TorchState(model=model, optimizer=opt, step=0)
+        commit_ms = []
+        for i in range(CKPT_STEPS):
+            hvd.cached_step(make_step())(tokens)
+            state.step = i + 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state.commit()
+            commit_ms.append((time.perf_counter() - t0) * 1e3)
+        require(checkpoint.current_plane().flush(120.0),
+                "checkpoint: the snapshot writer did not finish")
+        snap = metrics.delta(metrics.snapshot(), before)
+        n_snap = snap.get(("hvd_ckpt_snapshot_seconds_count", ()), 0)
+        snapshot_ms = (snap.get(("hvd_ckpt_snapshot_seconds_sum", ()), 0.0)
+                       * 1e3 / max(n_snap, 1))
+        with open(checkpoint.manifest_path(plane_dir, CKPT_STEPS)) as f:
+            manifest = json.load(f)
+        snapshot_mb = sum(m["nbytes"] for m in manifest["shards"]) / 1e6
+        save_alone_ms = []
+        for _ in range(CKPT_SAVES):  # the same values: the commit stands
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state.save()
+            save_alone_ms.append((time.perf_counter() - t0) * 1e3)
+        mgr = checkpoint.Checkpointer(os.path.join(tmp, "ckpt"),
+                                      max_to_keep=2)
+        t0 = time.perf_counter()
+        mgr.save(CKPT_STEPS, {"model": model.state_dict(),
+                              "optimizer": opt.optimizer.state_dict()})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        # the live graph across an in-place restore
+        live0 = gspmd_cache.stats()
+        for _ in range(CKPT_AFTER):
+            hvd.cached_step(make_step())(tokens)
+        diverged = [p.detach().clone() for p in model.parameters()]
+        state.restore()
+        for _ in range(CKPT_AFTER):
+            hvd.cached_step(make_step())(tokens)
+        torch.cuda.synchronize()
+        live1 = gspmd_cache.stats()
+        want = [p.detach().clone() for p in model.parameters()]
+        live = {k: live1["events"].get(k, 0) - live0["events"].get(k, 0)
+                for k in ("recorded", "replayed", "invalidated", "fallback")}
+        live["builds"] = live1["builds"] - live0["builds"]
+        # the replays after restore() retrace the ones before it
+        retrace = _params_diff(diverged, want)
+        del diverged
+        del state, model, opt, make_step
+
+        def fresh():
+            _cfg, m, o, mk = _cached_trainer(dev)
+            m.reset_parameters(torch.Generator().manual_seed(1))
+            mk()(tokens)  # Adam's state exists
+            return m, o, mk
+
+        # from the sealed state-plane step, into a TorchState in place
+        m, o, mk = fresh()
+        restored = hvd.elastic.TorchState(model=m, optimizer=o, step=0)
+        t0 = time.perf_counter()
+        tree = checkpoint.sharded_restore_or_none(
+            plane_dir, target=restored._saved_state)
+        require(tree is not None, "checkpoint: no sealed step to restore")
+        restored._saved_state = tree
+        restored.restore()
+        torch.cuda.synchronize()
+        plane_restore_ms = (time.perf_counter() - t0) * 1e3
+        require(restored.step == CKPT_STEPS,
+                f"checkpoint: restored step {restored.step}")
+        for _ in range(CKPT_AFTER):
+            mk()(tokens)
+        plane_diff = _ckpt_params_diff(want, m)
+        del restored, m, o, mk, tree
+        # from the Checkpointer
+        m, o, mk = fresh()
+        t0 = time.perf_counter()
+        tree = mgr.restore(target={"model": m.state_dict(),
+                                   "optimizer": o.optimizer.state_dict()})
+        m.load_state_dict(tree["model"])
+        o.optimizer.load_state_dict(tree["optimizer"])
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(CKPT_AFTER):
+            mk()(tokens)
+        ckpt_diff = _ckpt_params_diff(want, m)
+        steps = mgr.all_steps()
+        del m, o, mk, tree
+    finally:
+        checkpoint.reset_plane()
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    print(f"[checkpoint] TorchState commit every step ({CKPT_STEPS} steps): "
+          f"{['%.1f' % x for x in commit_ms]} ms; background snapshots "
+          f"{int(n_snap)}, {snapshot_ms:.1f} ms and {snapshot_mb:.1f} MB "
+          f"each (manifest of step {CKPT_STEPS}: {len(manifest['shards'])} "
+          f"shard, {manifest['n_leaves']} leaves)")
+    print(f"[checkpoint] TorchState.save() alone (the host copy, writer "
+          f"idle): {['%.1f' % x for x in save_alone_ms]} ms")
+    print(f"[checkpoint] the live graph across restore(): {live} (events "
+          f"over {CKPT_AFTER} replays, restore(), {CKPT_AFTER} replays); "
+          f"the replays after it against those before it: max abs "
+          f"{retrace:.3g}")
+    print(f"[checkpoint] Checkpointer save {save_ms:.1f} ms, restore "
+          f"{restore_ms:.1f} ms; state-plane restore {plane_restore_ms:.1f} "
+          f"ms; after {CKPT_AFTER} more steps, parameters against the "
+          f"uninterrupted run: plane {plane_diff:.3g}, Checkpointer "
+          f"{ckpt_diff:.3g} (max abs) on {torch.cuda.get_device_name(0)}")
+    require(n_snap == CKPT_STEPS and manifest["step"] == CKPT_STEPS,
+            f"checkpoint: {n_snap} snapshots, manifest {manifest['step']}")
+    require(steps == [CKPT_STEPS], f"checkpoint: steps {steps}")
+    require(live == {"recorded": 0, "replayed": 2 * CKPT_AFTER,
+                     "invalidated": 0, "fallback": 0, "builds": 0},
+            f"checkpoint: the graph across restore() gave {live}, want "
+            f"{2 * CKPT_AFTER} replays and no record or drop")
+    require(retrace == 0.0,
+            f"checkpoint: the replays after restore() are {retrace:.3g} off "
+            "the same replays before it")
+    require(plane_diff == 0.0 and ckpt_diff == 0.0,
+            f"checkpoint: restored runs off by {plane_diff:.3g} (plane) "
+            f"and {ckpt_diff:.3g} (Checkpointer)")
+    return {"commit_ms": commit_ms, "save_alone_ms": save_alone_ms,
+            "live_graph_across_restore": live,
+            "retrace_max_abs": retrace,
+            "snapshot_ms": snapshot_ms,
+            "snapshot_mb": snapshot_mb, "snapshots": int(n_snap),
+            "checkpointer_save_ms": save_ms,
+            "checkpointer_restore_ms": restore_ms,
+            "plane_restore_ms": plane_restore_ms,
+            "params_vs_uninterrupted_max_abs": {"plane": plane_diff,
+                                                "checkpointer": ckpt_diff}}
+
+
 def phase_moe(dev):
     """The MoE TransformerLM at full width with one expert at NCCL world 1:
     ``TransformerConfig(attn_mode="ulysses", moe_experts=1)``, bf16, 8 x
@@ -2150,6 +2594,8 @@ def main(argv) -> int:
     ada, ada_launches = timed("adasum", phase_adasum, dev)
     neg, neg_launches = timed("negotiation", phase_negotiation, dev)
     fusion, fusion_launches = timed("fusion", phase_fusion, dev)
+    cached, cached_launches = timed("cached step", phase_cached_step, dev)
+    ckpt = timed("checkpoint", phase_checkpoint, dev)
     moe, moe_launches = timed("moe", phase_moe, dev)
     pipeline = timed("pipeline", phase_pipeline, dev)
     long_ctx = timed("long context", phase_long_context)
@@ -2164,6 +2610,7 @@ def main(argv) -> int:
         row["launches_adasum"] = ada_launches[name]
         row["launches_negotiation"] = neg_launches[name]
         row["launches_fusion"] = fusion_launches[name]
+        row["launches_cached_step"] = cached_launches[name]
         row["launches_long_context"] = {
             mode: res["launches_per_step"][-1][name]
             for mode, res in long_ctx.items()}
@@ -2184,6 +2631,7 @@ def main(argv) -> int:
     print(json.dumps({"adasum": ada}))
     print(json.dumps({"negotiation": neg}))
     print(json.dumps({"fusion": fusion}))
+    print(json.dumps({"cached_step": cached, "checkpoint": ckpt}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -85,18 +85,21 @@ def warmup_schedule(initial_lr: float, *, steps_per_epoch: int,
                        end_epoch=warmup_epochs, staircase=False)
 
 
-def metric_average(value, name: str | None = None) -> float:
-    """Average a scalar metric over all ranks (the reference's per-metric
-    ``hvd.allreduce`` inside ``MetricAverageCallbackImpl``), as float32 on
-    this rank's device."""
+def metric_average(value, name: str | None = None, *,
+                   process_set=None) -> float:
+    """Average a scalar metric over the ranks of ``process_set`` (default:
+    all; the reference's per-metric ``hvd.allreduce`` inside
+    ``MetricAverageCallbackImpl``), as float32 on this rank's device."""
     t = torch.tensor(float(value), dtype=torch.float32,
                      device=runtime.device())
-    return float(collectives.allreduce(t, op=ReduceOp.AVERAGE, name=name))
+    return float(collectives.allreduce(t, op=ReduceOp.AVERAGE, name=name,
+                                       process_set=process_set))
 
 
-def average_metrics(logs: Mapping) -> dict:
-    """Average every value of a metrics dict across ranks, in sorted key
-    order so that every rank issues the same collectives (reference
-    ``_average_metrics_in_place``)."""
-    return {k: metric_average(v, name=f"metric.{k}")
+def average_metrics(logs: Mapping, *, process_set=None) -> dict:
+    """Average every value of a metrics dict across the ranks of
+    ``process_set``, in sorted key order so that every rank issues the same
+    collectives (reference ``_average_metrics_in_place``)."""
+    return {k: metric_average(v, name=f"metric.{k}",
+                              process_set=process_set)
             for k, v in sorted(logs.items())}

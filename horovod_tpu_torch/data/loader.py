@@ -1,5 +1,11 @@
-"""A loader that gives each rank its share of seeded global batches (port
-of ``ShardedArrayLoader`` in ``horovod_tpu/data/loader.py``).
+"""Loader base, an async prefetch mixin, and a loader that gives each rank
+its share of seeded global batches (port of ``horovod_tpu/data/loader.py``).
+
+:class:`BaseDataLoader` and :class:`AsyncDataLoaderMixin` are the
+reference's (``horovod/data/data_loader_base.py``), composed the same way::
+
+    class MyAsyncLoader(AsyncDataLoaderMixin, MyLoader):
+        pass
 
 :class:`ShardedArrayLoader` walks the same seeded global batches as the JAX
 loader; where that one shards each global batch over the mesh, here each
@@ -8,13 +14,96 @@ rank (one process per card) takes its own contiguous rows of it.
 
 from __future__ import annotations
 
+from queue import Empty, Queue
+from threading import Event, Thread
+
 import numpy as np
 import torch
 
 from .. import runtime
 
 
-class ShardedArrayLoader:
+class BaseDataLoader:
+    """Iterable of batches (reference ``BaseDataLoader``)."""
+
+    def __len__(self):
+        raise NotImplementedError()
+
+    def _iterate(self):
+        """Yield raw batches; concrete loaders implement it."""
+        raise NotImplementedError()
+
+    def __iter__(self):
+        for batch in self._iterate():
+            yield self._process_batch(batch)
+
+    def _process_batch(self, batch):
+        """Hook for a subclass's or trainer's batch post-processing."""
+        return batch
+
+
+class AsyncDataLoaderMixin:
+    """Prefetch ``_iterate()`` on a daemon thread into a bounded queue
+    (reference ``AsyncDataLoaderMixin``; a queue size of 0 turns it off).
+
+    Mix it in FIRST: ``class Loader(AsyncDataLoaderMixin, Base)``.
+    """
+
+    def __init__(self, *args, async_loader_queue_size: int = 64, **kwargs):
+        self.async_loader_queue_size = async_loader_queue_size
+        super().__init__(*args, **kwargs)
+        self._queue: Queue | None = None
+        self._finished: Event | None = None
+        self._thread: Thread | None = None
+
+    def close_async_loader(self) -> None:
+        """Stop the prefetch thread and drain the queue."""
+        if self._thread is None:
+            return
+        self._finished.set()
+        while True:  # unblock a producer waiting on a full queue
+            try:
+                self._queue.get_nowait()
+            except Empty:
+                break
+        self._thread.join(timeout=30)
+        self._thread = None
+
+    def _async_worker(self):
+        try:
+            for batch in super().__iter__():
+                if self._finished.is_set():
+                    return
+                self._queue.put((batch, None))
+        except BaseException as e:  # noqa: BLE001 - raised in the consumer
+            # a producer's error surfaces in the training loop: an epoch cut
+            # short on one rank would hang the next collective
+            self._queue.put((None, e))
+            return
+        self._queue.put((None, None))  # the end of the epoch
+
+    def __iter__(self):
+        if self.async_loader_queue_size <= 0:
+            yield from super().__iter__()
+            return
+        self._finished = Event()
+        self._queue = Queue(self.async_loader_queue_size)
+        self._thread = Thread(target=self._async_worker, daemon=True,
+                              name="hvd-data-prefetch")
+        self._thread.start()
+        try:
+            while True:
+                batch, error = self._queue.get()
+                if error is not None:
+                    raise error
+                if batch is None:
+                    break
+                yield batch
+        finally:
+            self.close_async_loader()
+
+
+class ShardedArrayLoader(BaseDataLoader):
     """Batches of host arrays, each rank's share of each global batch.
 
     Epoch ``e`` walks the rows in the order of one seeded global
@@ -49,7 +138,7 @@ class ShardedArrayLoader:
         return n // self.batch_size if self.drop_remainder else \
             -(-n // self.batch_size)
 
-    def __iter__(self):
+    def _iterate(self):
         n = len(self.arrays[0])
         order = np.arange(n)
         if self.shuffle:

@@ -703,6 +703,13 @@ class DynamicService:
                     hvd_logging.error("%s", e)
                     self._on_peer_failure(e.rank, e.reason)
                 return
+            except HorovodCollectiveError as e:
+                # an error every rank derives from the same agreed plan (a
+                # joined rank refusing a broadcast or alltoall): each rank
+                # fails from its own cycle, and no poison record races a
+                # slower peer's cycle to fail it with another error
+                self._fail_all(f"engine negotiation failed: {e}")
+                return
             except Exception as e:
                 hvd_logging.exception("engine cycle failed")
                 if self._watchdog is not None:

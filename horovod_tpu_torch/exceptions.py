@@ -42,21 +42,6 @@ class ResponseCacheJoinError(HorovodInternalError):
             "(docs/negotiation.md).")
 
 
-class QosAdmissionError(RuntimeError):
-    """An async submission was shed by its tenant's QoS admission control.
-    Not a :class:`HorovodInternalError`: shedding is flow control."""
-
-    def __init__(self, tenant: str, nbytes: int, pending: int, quota: int):
-        self.tenant = tenant
-        self.nbytes = int(nbytes)
-        self.pending = int(pending)
-        self.quota = int(quota)
-        super().__init__(
-            f"tenant {tenant!r}: submission of {nbytes} B shed by QoS "
-            f"admission control ({pending} B already pending, quota "
-            f"{quota} B)")
-
-
 class HostsUpdatedInterrupt(RuntimeError):
     """The set of available hosts changed; ``skip_sync`` is True when hosts
     were only removed."""
@@ -83,3 +68,99 @@ class QosAdmissionError(RuntimeError):
             f"tenant {tenant!r}: submission of {nbytes} B shed by QoS "
             f"admission control ({pending} B already pending, quota "
             f"{quota} B)")
+
+
+# Error-message fragments of a membership or communication failure
+# (recoverable by re-forming the world) rather than a user bug, matched only
+# on exception types the distributed runtime itself raises: torch's
+# ``DistError`` family (``DistBackendError`` carries NCCL's errors) and the
+# port's own modules. A user's HTTP 503 ("service unavailable") surfaces as
+# its own traceback, not as an elastic retry.
+_TRANSIENT_DISTRIBUTED_MARKERS = (
+    "distributed",
+    "heartbeat",
+    "coordination service",
+    "preemption",
+    "deadline exceeded",
+    "unavailable",
+    "connection reset",
+    "connection closed",
+    "connection refused",
+    "socket closed",
+    "broken pipe",
+    "barrier",
+    # collective failures when a peer dies mid-operation
+    "gloo",
+    "nccl",
+    "all-reduce failed",
+    "all-gather failed",
+    "collective",
+    "peer",
+    "timed out",
+)
+
+# For exceptions of a builtin type (the RuntimeError gloo raises when a
+# peer closes its connection, a TimeoutError of a store) the type's module
+# tells nothing, so only multi-word phrases specific to the collective
+# runtime qualify: single words such as "unavailable" or "peer" would
+# swallow ordinary user errors.
+_STRICT_DISTRIBUTED_MARKERS = (
+    "coordination service",
+    "torch.distributed",
+    "distributed runtime",
+    "process group",
+    "connection closed by peer",
+    "connection reset by peer",
+    "all-reduce failed",
+    "all-gather failed",
+    "all-to-all failed",
+    "nccl error",
+    "ncclremoteerror",
+    "ncclsystemerror",
+    "ncclinternalerror",
+    "gloo broadcast failed",
+    "gloo reduce failed",
+    "gloo barrier failed",
+)
+
+
+def _is_runtime_module(mod: str) -> bool:
+    """Whether an exception type's module is the distributed runtime's:
+    ``torch.distributed`` (its ``DistError``, ``DistBackendError``,
+    ``DistNetworkError`` and ``DistStoreError``), torch's C extension,
+    which defines them, and the port's own modules. Not a user library
+    whose name merely starts with ``torch`` (``torchvision``)."""
+    return (mod in ("torch.distributed", "torch._C", "horovod_tpu_torch")
+            or mod.startswith(("torch.distributed.", "torch._C.",
+                               "horovod_tpu_torch.")))
+
+
+def is_recoverable_distributed_error(exc: BaseException) -> bool:
+    """Whether ``exc`` looks like a peer or communication failure that
+    elastic mode should recover from: broad markers on exception types of
+    the distributed runtime (:func:`_is_runtime_module`), multi-word
+    phrases specific to it on any other type."""
+    text = f"{type(exc).__name__}: {exc}".lower()
+    mod = type(exc).__module__ or ""
+    if _is_runtime_module(mod):
+        return any(m in text for m in _TRANSIENT_DISTRIBUTED_MARKERS)
+    return any(m in text for m in _STRICT_DISTRIBUTED_MARKERS)
+
+
+def wrap_internal_errors(fn):
+    """Decorator turning recoverable distributed-runtime errors into
+    :class:`HorovodInternalError`, which ``elastic.run_fn`` catches."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        try:
+            return fn(*args, **kwargs)
+        except (HorovodInternalError, HostsUpdatedInterrupt):
+            raise
+        except Exception as e:
+            if is_recoverable_distributed_error(e):
+                raise HorovodInternalError(str(e)) from e
+            raise
+
+    return wrapper

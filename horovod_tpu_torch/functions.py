@@ -33,6 +33,10 @@ def broadcast_parameters(params: dict, root_rank: int = 0, *,
     return params
 
 
+# the TensorFlow name (reference ``broadcast_variables``)
+broadcast_variables = broadcast_parameters
+
+
 def broadcast_optimizer_state(optimizer, root_rank: int = 0, *,
                               process_set=None):
     """Broadcast a ``torch.optim.Optimizer``'s state tensors from

@@ -413,6 +413,84 @@ DISPATCH_CHUNKED_BUILDS = counter(
 DISPATCH_STEP_BUILDS = counter(
     "hvd_dispatch_step_builds_total",
     "Whole-step capture plans built (ops/step_capture.py).", always=True)
+DISPATCH_GSPMD_BUILDS = counter(
+    "hvd_dispatch_gspmd_builds_total",
+    "Compiled GSPMD step programs built (ops/gspmd_cache.py: one "
+    "lower+compile per new step signature).", always=True)
+
+# -- cached whole steps (ops/gspmd_cache.py; backs hvd.gspmd_cache_stats())
+GSPMD_CACHE_PHASE = gauge(
+    "hvd_gspmd_cache_phase",
+    "GSPMD cached-step lifecycle phase (the step-capture vocabulary): "
+    "0 idle, 1 record (building), 3 replayed, 4 bypass.")
+GSPMD_CACHE_STEPS = counter(
+    "hvd_gspmd_cache_steps_total",
+    "GSPMD cached-step lifecycle events by kind (recorded / replayed / "
+    "fallback / invalidated / bypass).",
+    labels=("event",))
+GSPMD_PASSTHROUGH_SYNCS = counter(
+    "hvd_gspmd_passthrough_syncs_total",
+    "Gradient syncs traced through DistributedOptimizer's GSPMD "
+    "passthrough branch (once per TRACE, not per step — frozen while "
+    "cached steps replay).")
+
+# -- elastic recovery (elastic/state.py) ----------------------------------
+ELASTIC_EVENTS = counter(
+    "hvd_elastic_events_total",
+    "Elastic membership + recovery events by kind: scripted churn "
+    "(add / remove / preempt), worker-side recoveries (hosts-updated "
+    "interrupt, peer-failure restore).",
+    labels=("kind",))
+ELASTIC_REFORM_SECONDS = histogram(
+    "hvd_elastic_reform_seconds",
+    "Worker-side re-form duration: interrupt/failure caught -> "
+    "re-rendezvoused into the new round, state synced, training "
+    "re-entered (the recovery-time SLO numerator).",
+    buckets=(0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 20.0, 45.0, 90.0, 180.0))
+ELASTIC_STEPS_LOST = counter(
+    "hvd_elastic_steps_lost_total",
+    "In-flight steps rolled back by a failure restore (commit-per-step "
+    "convention: each HorovodInternalError recovery counts its one "
+    "uncommitted step; graceful interrupts count zero).")
+
+# -- checkpoint state plane (checkpoint.py) ------------------------------
+CKPT_SNAPSHOT_SECONDS = histogram(
+    "hvd_ckpt_snapshot_seconds",
+    "Background snapshot duration on the writer thread: this rank's "
+    "shard pickled + written + fsync-renamed (rank 0 adds the manifest "
+    "wait/write) — off the training critical path by construction.",
+    buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 15.0, 60.0))
+CKPT_SHARDS_WRITTEN = counter(
+    "hvd_ckpt_shards_written_total",
+    "Snapshot shards durably written by this rank (one per triggered "
+    "snapshot that completed its atomic rename).")
+CKPT_RESTORE_SECONDS = histogram(
+    "hvd_ckpt_restore_seconds",
+    "Re-form state re-sync duration: manifest-agree round entered -> "
+    "attributes restored (peer shard pulls, or the degraded rank-0 "
+    "broadcast). The restore half of the recovery-SLO lane.",
+    buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0, 60.0))
+CKPT_PEER_SHARDS_PULLED = counter(
+    "hvd_ckpt_peer_shards_pulled_total",
+    "Shards this rank pulled from survivors during peer-restore, by "
+    "transport (hub = in-world loopback rendezvous, kv = the fallback "
+    "KV channel).",
+    labels=("transport",))
+CKPT_RESTORE_BYTES = counter(
+    "hvd_ckpt_restore_bytes_total",
+    "State-restore payload bytes this rank received, by source (rank0 "
+    "= served by rank 0: degraded broadcasts plus shards rank 0 "
+    "happened to own; peer = shards served by other survivors). The "
+    "recovery lane gates peer-restore moving strictly fewer rank0 "
+    "bytes than the broadcast baseline.",
+    labels=("source",))
+CKPT_DEGRADED_RESTORES = counter(
+    "hvd_ckpt_degraded_restores_total",
+    "Re-forms that fell back to the rank-0 full-tree broadcast, by "
+    "reason (quorum = too few consistent survivors, structure = the "
+    "joiner's state tree shape disagreed, pull-failed = shard pulls "
+    "exhausted their failover retry).",
+    labels=("reason",))
 
 
 # --------------------------------------------------------------------------

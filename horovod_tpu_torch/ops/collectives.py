@@ -54,7 +54,8 @@ from ..utils import envs
 from .compression import NoneCompressor
 from .reduce_ops import ReduceOp, handle_average
 from ..dynamic import (REQ_ALLGATHER, REQ_ALLREDUCE, REQ_ALLTOALL,
-                       REQ_BARRIER, REQ_BROADCAST, REQ_REDUCESCATTER)
+                       REQ_BARRIER, REQ_BROADCAST, REQ_REDUCESCATTER,
+                       HorovodCollectiveError)
 
 _DIST_OPS = {
     ReduceOp.SUM: dist.ReduceOp.SUM,
@@ -810,6 +811,15 @@ def allreduce(tensor: torch.Tensor, **kw) -> torch.Tensor:
         kind="allreduce", **kw).synchronize()[0]
 
 
+def allreduce_(tensor: torch.Tensor, **kw) -> torch.Tensor:
+    """:func:`allreduce` written into ``tensor`` (the reference's in-place
+    ``allreduce_``); returns ``tensor``."""
+    out = allreduce(tensor, **kw)
+    with torch.no_grad():
+        tensor.copy_(out)
+    return tensor
+
+
 def _check_root(root_rank: int, pset: ProcessSet) -> None:
     """``root_rank`` is a global rank, and must be in the set (reference
     ``broadcast``)."""
@@ -939,6 +949,15 @@ def broadcast(tensor: torch.Tensor, root_rank: int, **kw) -> torch.Tensor:
     """Broadcast one tensor from ``root_rank`` (reference
     ``hvd.broadcast``), issued at once."""
     return _grouped_broadcast_now([tensor], root_rank, **kw).synchronize()[0]
+
+
+def broadcast_(tensor: torch.Tensor, root_rank: int, **kw) -> torch.Tensor:
+    """:func:`broadcast` written into ``tensor`` (the reference's in-place
+    ``broadcast_``); returns ``tensor``."""
+    out = broadcast(tensor, root_rank, **kw)
+    with torch.no_grad():
+        tensor.copy_(out)
+    return tensor
 
 
 def _stream_done(stream):
@@ -1144,6 +1163,12 @@ def alltoall(tensor: torch.Tensor, splits=None, *,
         issue, "ALLTOALL").synchronize()
 
 
+def alltoall_async(tensor: torch.Tensor, splits=None, **kw) -> Handle:
+    """A handle over :func:`alltoall`, issued at the call (the reference's
+    ``alltoall_async``)."""
+    return Handle(result=alltoall(tensor, splits, **kw))
+
+
 def reducescatter(tensor: torch.Tensor, *, op: ReduceOp = ReduceOp.SUM,
                   process_set: ProcessSet | None = None,
                   name: str | None = None) -> torch.Tensor:
@@ -1236,7 +1261,9 @@ def _execute_joined_zeros(responses) -> None:
             elif resp.type in (REQ_ALLGATHER, REQ_BARRIER):
                 unit = units.setdefault((resp.type, tname), [0, resp, []])
             else:
-                raise RuntimeError(
+                # every joined rank reads this from the same agreed plan:
+                # an agreed error, not a local failure (no poison record)
+                raise HorovodCollectiveError(
                     f"hvd.join(): another rank scheduled a "
                     f"{resp.type_name} ({resp.tensor_names}) while this one "
                     "is joined; zero contribution is defined for "

@@ -28,11 +28,12 @@ Statistics surface through :func:`stats` (``hvd.dispatch_cache_stats()``)
 and, while a timeline records, as ``PLAN_HIT``/``PLAN_MISS`` instants on
 the op's lane. Hits are counted by source: ``call`` (a direct eager
 collective), ``flush`` (a fusion-cycle flush), ``step`` (a replayed
-captured step); the JAX package's ``gspmd`` source has no producer yet.
+captured step), ``gspmd`` (a replayed ``hvd.cached_step``,
+``ops/gspmd_cache.py``).
 
 The JAX package shelves plans across an elastic re-form
 (``shelve_for_reform``/``restore_for_reform``); the port has no elastic
-layer yet (ROADMAP A13), and those two raise.
+re-form yet (ROADMAP A13b), and those two raise.
 """
 
 from __future__ import annotations
@@ -56,8 +57,9 @@ class DispatchPlan:
     the timeline labels and ``execute(arg)``, which issues the collective
     with every decision resolved. ``variant`` is ``"fused"`` (one
     collective a wire buffer), ``"chunked"`` (buffers past
-    ``HVD_PIPELINE_THRESHOLD`` issued as ``pieces`` chunk collectives) or
-    ``"step"`` (a captured step)."""
+    ``HVD_PIPELINE_THRESHOLD`` issued as ``pieces`` chunk collectives),
+    ``"step"`` (a captured step's sync) or ``"gspmd"`` (a cached whole
+    step)."""
 
     __slots__ = ("label", "activity", "nbytes", "negotiate", "execute",
                  "variant", "pieces")
@@ -181,6 +183,12 @@ def note_step_hit() -> None:
     _timeline.record_dispatch("step", hit=True)
 
 
+def note_gspmd_hit() -> None:
+    """Count one served cached-step replay (``hits_by_source["gspmd"]``)."""
+    _metrics.DISPATCH_HITS.inc(labels={"source": "gspmd"})
+    _timeline.record_dispatch("gspmd", hit=True)
+
+
 def fold_knobs(variant: str, key: tuple, *raw_knob_values) -> tuple:
     """The store key of a whole-step plan: its ``variant``, the raw values
     of every knob its executor bakes in, and the content ``key``; a knob
@@ -211,6 +219,8 @@ def store(key: tuple, plan: DispatchPlan) -> None:
             _metrics.DISPATCH_CHUNKED_BUILDS.inc()
         if plan is not UNPLANNABLE and plan.variant == "step":
             _metrics.DISPATCH_STEP_BUILDS.inc()
+        if plan is not UNPLANNABLE and plan.variant == "gspmd":
+            _metrics.DISPATCH_GSPMD_BUILDS.inc()
         _sync_epoch_locked(epoch)
         _plans[key] = plan
         _plans.move_to_end(key)
@@ -237,17 +247,17 @@ def invalidate(reason: str | None = None) -> int:
 
 def shelve_for_reform() -> int:
     """The JAX package keeps plans across an elastic re-form here; the
-    port has no elastic layer yet."""
+    port has no elastic re-form yet."""
     raise NotImplementedError(
         "dispatch-plan shelving across an elastic re-form waits for the "
-        "port's elastic layer (ROADMAP A13)")
+        "port's elastic re-form (ROADMAP A13b)")
 
 
 def restore_for_reform() -> int:
     """See :func:`shelve_for_reform`."""
     raise NotImplementedError(
         "dispatch-plan shelving across an elastic re-form waits for the "
-        "port's elastic layer (ROADMAP A13)")
+        "port's elastic re-form (ROADMAP A13b)")
 
 
 def note_negotiation_skip() -> None:
@@ -277,7 +287,7 @@ def stats() -> dict:
             _metrics.DISPATCH_NEGOTIATION_SKIPS.value()),
         "chunked_builds": int(_metrics.DISPATCH_CHUNKED_BUILDS.value()),
         "step_builds": int(_metrics.DISPATCH_STEP_BUILDS.value()),
-        "gspmd_builds": 0,
+        "gspmd_builds": int(_metrics.DISPATCH_GSPMD_BUILDS.value()),
         "warm_pool": 0,
         "warm_reuses": 0,
     }
@@ -289,7 +299,8 @@ def reset_stats() -> None:
                  _metrics.DISPATCH_EVICTIONS,
                  _metrics.DISPATCH_NEGOTIATION_SKIPS,
                  _metrics.DISPATCH_CHUNKED_BUILDS,
-                 _metrics.DISPATCH_STEP_BUILDS):
+                 _metrics.DISPATCH_STEP_BUILDS,
+                 _metrics.DISPATCH_GSPMD_BUILDS):
         inst.reset()
 
 

@@ -41,6 +41,9 @@ the parameters' gradients over the ranks while the backward pass runs:
   two-level over the layout (the node, then ``dcn``): the reference's
   composed step, whose ``pmean`` over the ``seq`` or ``expert`` axis comes
   before its data-axis sync (``parallel.mesh.step_reducer``).
+* Inside ``hvd.cached_step`` (``ops/gspmd_cache.py``) the whole step,
+  this sync included, is captured into one CUDA Graph on the card; while
+  it is captured the buckets are issued at once on the capturing stream.
 * ``backward_passes_per_step=k`` is ``optax.MultiSteps``: the first k-1
   calls of ``step()`` fold ``.grad`` into a float32 running mean
   (``acc + (g - acc) / n``) and change nothing else; the k-th reduces the
@@ -57,7 +60,7 @@ import weakref
 
 import torch
 
-from ..ops import collectives, fusion_cycle, step_capture
+from ..ops import collectives, fusion_cycle, gspmd_cache, step_capture
 from ..ops import sparse as sparse_ops
 from ..ops.compression import Compression, Compressor
 from ..ops.reduce_ops import ReduceOp
@@ -250,7 +253,12 @@ class DistributedOptimizer:
     def _start(self, b: int) -> None:
         grads = [self._grad(self._dense[i]) for i in self._buckets[b]]
         h = None
-        if self._negotiate:  # not mesh_spec's composed reducer
+        # mesh_spec's composed reducer issues at once, and so does every
+        # bucket while the stream is captured (a cached step): on the
+        # capturing stream, not on the fusion cycle's executor thread
+        capturing = grads[0].is_cuda \
+            and torch.cuda.is_current_stream_capturing()
+        if self._negotiate and not capturing:
             if b == 0 and self._region is None:
                 self._region = step_capture.auto_region().__enter__()
             h = fusion_cycle.queue_allreduce(
@@ -312,6 +320,8 @@ class DistributedOptimizer:
         nothing to reduce yet."""
         if self._synced or self._micro != self._k - 1:
             return
+        if gspmd_cache.recording():
+            gspmd_cache.note_passthrough()
         if self._member:
             for b in range(self._next, len(self._buckets)):
                 self._start(b)
@@ -379,13 +389,20 @@ def _flatten(x):
 def value_and_grad(fun, argnums=0, has_aux: bool = False, *,
                    op: ReduceOp = ReduceOp.AVERAGE,
                    process_set: ProcessSet | None = None,
-                   compression: type[Compressor] = Compression.none):
+                   compression: type[Compressor] = Compression.none,
+                   mesh_spec=None):
     """``jax.value_and_grad`` over ``torch.autograd.grad`` with the
     gradients allreduced (reference ``value_and_grad``, the
     ``DistributedGradientTape`` analog). ``argnums`` (an int or a tuple)
     picks the arguments to differentiate; each is a tensor or a list,
     tuple or dict of tensors, and its gradient has its structure. The
-    value is not reduced; with ``has_aux`` it is ``(value, aux)``."""
+    value is not reduced; with ``has_aux`` it is ``(value, aux)``.
+    ``mesh_spec`` (a ``parallel.mesh.MeshLayout``, or the name pair of its
+    data axes) reduces two-level over the layout's data axes instead
+    (``parallel.mesh.sync_gradients``; no compressor, as there)."""
+    if mesh_spec is not None and process_set is not None:
+        raise ValueError("mesh_spec reduces over the layout: it takes no "
+                         "process_set")
 
     def wrapped(*args, **kwargs):
         nums = (argnums,) if isinstance(argnums, int) else tuple(argnums)
@@ -401,11 +418,18 @@ def value_and_grad(fun, argnums=0, has_aux: bool = False, *,
         with torch.enable_grad():
             out = fun(*args, **kwargs)
         value = out[0] if has_aux else out
-        grads = torch.autograd.grad(value, flat, allow_unused=True)
-        grads = collectives.grouped_allreduce(
-            [torch.zeros_like(t) if g is None else g
-             for g, t in zip(grads, flat)],
-            op=op, process_set=process_set, compression=compression)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(torch.autograd.grad(value, flat,
+                                                     allow_unused=True),
+                                 flat)]
+        if mesh_spec is not None:
+            from ..parallel import mesh as composed
+            grads = composed.sync_gradients(
+                grads, composed.layout_of(mesh_spec), op=op)
+        else:
+            grads = collectives.grouped_allreduce(
+                grads, op=op, process_set=process_set,
+                compression=compression)
         structured, i = [], 0
         for ts, build in zip(leaves, builds):
             structured.append(build(grads[i:i + len(ts)]))

@@ -45,17 +45,29 @@ _state: _RuntimeState | None = None
 _generation = 0  # moves at every init(): plans of an older world are stale
 
 
-def init(device: str | torch.device | None = None,
-         process_sets: Sequence[Sequence[int]] | str | None = None) -> None:
+def init(comm: Sequence[int] | None = None,
+         process_sets: Sequence[Sequence[int]] | str | None = None, *,
+         device: str | torch.device | None = None) -> None:
     """Join the world (reference ``hvd.init``). ``device`` defaults to the
     card: ``cuda:<LOCAL_RANK>``. Pass ``"cpu"`` for a gloo world on the host.
     ``process_sets`` is a list of rank lists to register as process sets
     now (every rank passes the same list), or ``"dynamic"`` to allow
     ``add_process_set`` later, as ``HVD_DYNAMIC_PROCESS_SETS=1`` does.
+    ``comm``, the global set as a list of ranks, must name the whole world:
+    a process is a rank here, and every module issues the global set's
+    collectives on the default process group, so a world of fewer ranks is
+    launched with that ``WORLD_SIZE`` (a subset is a process set).
     Calling it again while initialized is a no-op."""
     global _state, _generation
     if _state is not None:
         return
+    if comm is not None:
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if sorted(int(r) for r in comm) != list(range(world)):
+            raise ValueError(
+                f"init(comm={list(comm)}): the global set is the whole "
+                f"world of {world} ranks here; launch the ranks of comm as "
+                "their own world, or use add_process_set for a subset")
     device = torch.device("cuda" if device is None else device)
     env = os.environ
     rank = int(env.get("RANK", "0"))
@@ -250,3 +262,68 @@ def tpu_built() -> bool:
 
 def xla_built() -> bool:
     return False
+
+
+def process_rank() -> int:
+    """The index of this process: a process is a rank (the JAX package's
+    ``process_rank`` counts hosts of chips)."""
+    return _get().rank
+
+
+def process_count() -> int:
+    return _get().size
+
+
+def local_ranks() -> list:
+    """The global ranks this process drives: its own."""
+    return [_get().rank]
+
+
+def process_of_rank(global_rank: int) -> int:
+    """The process that drives ``global_rank``: itself."""
+    s = _get()
+    if not 0 <= global_rank < s.size:
+        raise ValueError(f"rank {global_rank} outside a world of {s.size}")
+    return int(global_rank)
+
+
+# capability queries (reference basics.py:273-371): what this build has.
+# torch.distributed's gloo and NCCL are the collective backends; there is no
+# MPI, CCL, DDL or XLA.
+
+def xla_enabled() -> bool:
+    return False
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def gloo_enabled() -> bool:
+    """Whether this world's collectives run on gloo (a CPU world)."""
+    return dist.is_initialized() and dist.get_backend() == "gloo"
+
+
+def mpi_built() -> bool:
+    return dist.is_mpi_available()
+
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def mpi_threads_supported() -> bool:
+    """False: there is no MPI."""
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def rocm_built() -> bool:
+    return torch.version.hip is not None

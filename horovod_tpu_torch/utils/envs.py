@@ -65,6 +65,12 @@ PIPELINE_THRESHOLD = "PIPELINE_THRESHOLD"  # bytes; fused wire buffers past this
 PIPELINE_CHUNKS = "PIPELINE_CHUNKS"  # chunk count for the large-buffer software pipeline
 CACHE_CAPACITY = "CACHE_CAPACITY"  # dispatch plans kept (reference default 1024; 0 = off)
 STEP_CAPTURE = "STEP_CAPTURE"  # capture-and-replay of the per-step collective stream (0 = off)
+GSPMD_CACHE = "GSPMD_CACHE"  # hvd.cached_step's whole-step plans (0 = plain calls)
+GSPMD_CACHE_DONATE = "GSPMD_CACHE_DONATE"  # auto|1|0: a cached step returns its graph's own tensors
+CKPT_DIR = "CKPT_DIR"  # sharded background snapshot directory (empty = state plane off)
+CKPT_INTERVAL = "CKPT_INTERVAL"  # commits between background snapshots
+CKPT_PEER_RESTORE = "CKPT_PEER_RESTORE"  # state re-sync from peers' shards (0 = rank-0 broadcast)
+CKPT_SHARD_QUORUM = "CKPT_SHARD_QUORUM"  # least survivors of one consistent state before peer restore
 DEBUG_INVARIANTS = "DEBUG_INVARIANTS"  # dev-mode runtime invariant checker
 QOS = "QOS"  # multi-tenant QoS collective engine (0 = single-tenant FIFO)
 QOS_WINDOW = "QOS_WINDOW"  # arbitration window: parked batches before a pump grants
@@ -357,3 +363,56 @@ def step_capture_enabled() -> bool:
     and off while the QoS engine is on (capture assumes one repeating
     single-tenant flush stream), as in the JAX package."""
     return get_bool(STEP_CAPTURE, False) and not qos_enabled()
+
+
+def gspmd_cache_enabled() -> bool:
+    """``hvd.cached_step``'s plans (``ops/gspmd_cache.py``); on by
+    default (the API is an opt-in, the knob a kill switch), and off with
+    the whole dispatch plan cache (``HVD_CACHE_CAPACITY=0``)."""
+    return get_bool(GSPMD_CACHE, True) and cache_capacity() > 0
+
+
+def donation_effective(platform: str) -> bool:
+    """Whether handing a step's own buffers back saves memory on this
+    device type: on the card a cached step's outputs are its graph's
+    tensors; the host keeps no graph."""
+    return platform not in ("cpu",)
+
+
+def gspmd_donate_enabled(platform: str) -> bool:
+    """Whether a cached step returns its graph's own output tensors (which
+    its next replay overwrites) rather than clones; ``auto`` follows
+    :func:`donation_effective`."""
+    val = (get(GSPMD_CACHE_DONATE, "auto") or "auto").strip().lower()
+    if val in ("1", "true", "yes", "on"):
+        return True
+    if val in ("0", "false", "no", "off"):
+        return False
+    return donation_effective(platform)
+
+
+# The checkpoint state plane (``checkpoint.py``): a snapshot every tenth
+# commit; peer restore on by default, since it serves from the survivors'
+# live committed state and the rank-0 broadcast stays its typed fallback.
+DEFAULT_CKPT_INTERVAL = 10
+DEFAULT_CKPT_SHARD_QUORUM = 1
+
+
+def ckpt_dir() -> str:
+    """``HVD_CKPT_DIR``: the root of the background sharded snapshots;
+    empty (default) turns the state plane off."""
+    return (get(CKPT_DIR, "") or "").strip()
+
+
+def ckpt_interval() -> int:
+    return max(1, get_int(CKPT_INTERVAL, DEFAULT_CKPT_INTERVAL))
+
+
+def ckpt_peer_restore_enabled() -> bool:
+    """Whether a state re-sync pulls shards from the survivors instead of
+    rank 0's broadcast of the whole state."""
+    return get_bool(CKPT_PEER_RESTORE, True)
+
+
+def ckpt_shard_quorum() -> int:
+    return max(1, get_int(CKPT_SHARD_QUORUM, DEFAULT_CKPT_SHARD_QUORUM))

@@ -1203,3 +1203,354 @@ def test_cuda_nccl_world4_negotiated_capture_rounds(four_cards, tmp_path):
         assert np.isfinite(res["losses"]).all(), r
         assert st["fallbacks"] == 0, r
         assert turns["on"]["step_rounds"] == [1] * len(turns["on"]["ms"]), r
+
+
+# --------------------------------------------------------------------------
+# hvd.cached_step: the whole step as one CUDA Graph; TorchState on cards
+# --------------------------------------------------------------------------
+
+def _cached_trainer(hvd, steps: int, cached: bool, move_at=None,
+                    full: bool = False, seed: int = 0, before=None):
+    """The trainer (a small TransformerLM, or with ``full`` the full-width
+    defaults on 8 x 2048 tokens a rank) with its gradients kept in place,
+    ``steps`` steps eagerly or under ``hvd.cached_step`` with a fresh
+    closure each step; at ``move_at`` every parameter gets new storage
+    first; ``before(i, model, opt)``, if given, runs before step ``i``.
+    SGD with momentum and a postscale of 1/2 (small), or
+    ``Adam(capturable=True)`` (full). Returns the parameters after the
+    steps, the losses and ``gspmd_cache_stats()``."""
+    from horovod_tpu_torch.models import (TransformerConfig, TransformerLM,
+                                          lm_loss)
+    from horovod_tpu_torch.ops import dispatch_cache, gspmd_cache
+    dispatch_cache.reset()
+    gspmd_cache.reset_stats()
+    dev = hvd.device()
+    if full:
+        cfg = TransformerConfig(attn_mode="ulysses")
+        shape = (8, 2048)
+    else:
+        cfg = TransformerConfig(vocab_size=1000, num_layers=2,
+                                max_seq_len=512, attn_mode="ulysses")
+        shape = (2, 512)
+    model = TransformerLM(cfg, device=dev)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    if full:
+        opt = hvd.DistributedOptimizer(torch.optim.Adam(
+            model.parameters(), lr=1e-3, capturable=True))
+    else:
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            postscale_factor=0.5)
+    tokens = torch.from_numpy(np.random.default_rng(hvd.rank()).integers(
+        0, cfg.vocab_size, size=shape)).to(dev)
+
+    def make_step():
+        def train_step(t):
+            opt.zero_grad(set_to_none=False)
+            loss = lm_loss(model(t), t)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+        return train_step
+
+    losses = []
+    for i in range(steps):
+        if i == move_at:
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.data = p.data.clone()
+        if before is not None:
+            before(i, model, opt)
+        step = hvd.cached_step(make_step()) if cached else make_step()
+        losses.append(step(tokens).item())
+    torch.cuda.synchronize()
+    params = [p.detach().clone() for p in model.parameters()]
+    return params, losses, gspmd_cache.stats()
+
+
+@pytest.mark.cuda
+def test_cuda_cached_step_world1_replays_the_whole_step(cuda_world):
+    """At an NCCL world of one: the first call runs eagerly and captures
+    the step, every later call replays its graph, and the parameters equal
+    the eager run's bit for bit (or lie within its own spread)."""
+    import horovod_tpu_torch as hvd
+    eager, el, _ = _cached_trainer(hvd, 5, False)
+    again, _, _ = _cached_trainer(hvd, 5, False)
+    got, cl, st = _cached_trainer(hvd, 5, True)
+    spread = max((a - b).abs().max().item() for a, b in zip(eager, again))
+    diff = max((a - b).abs().max().item() for a, b in zip(eager, got))
+    print(f"cached_step {st}; parameters against eager {diff:.3g}, eager "
+          f"against itself {spread:.3g}; losses {cl} / {el}")
+    assert st["builds"] == 1 and st["events"] == {"recorded": 1,
+                                                  "replayed": 4}
+    assert diff == 0.0 or diff <= spread
+
+
+@pytest.mark.cuda
+def test_cuda_cached_step_world1_moved_parameter_rerecords(cuda_world):
+    """Every parameter given new storage before step 3: that call's plan
+    reads the old addresses, so it is dropped and the call runs plain
+    (counted once as invalidated and as a fallback); step 4 records a new
+    graph, step 5 replays it, and the result is the eager run's."""
+    import horovod_tpu_torch as hvd
+    eager, _, _ = _cached_trainer(hvd, 6, False, move_at=3)
+    got, _, st = _cached_trainer(hvd, 6, True, move_at=3)
+    print(f"cached_step with moved parameters: {st}")
+    assert st["builds"] == 2 and st["hits"] == 3
+    assert st["events"]["invalidated"] == 1
+    assert st["events"]["fallback"] == 1
+    for a, b in zip(eager, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_cached_step_world1_refuses_a_non_capturable_optimizer(
+        cuda_world):
+    """An optimizer whose step count is a host value cannot be captured:
+    refused with an error before the step runs."""
+    import horovod_tpu_torch as hvd
+    model = torch.nn.Linear(8, 4, device=hvd.device())
+    opt = hvd.DistributedOptimizer(torch.optim.Adam(model.parameters()))
+    x = torch.randn(3, 8, device=hvd.device())
+
+    def train_step(t):
+        opt.zero_grad()
+        model(t).sum().backward()
+        opt.step()
+
+    before = [p.detach().clone() for p in model.parameters()]
+    with pytest.raises(ValueError, match="capturable"):
+        hvd.cached_step(train_step)(x)
+    assert all(torch.equal(a, p) for a, p in zip(before,
+                                                   model.parameters()))
+
+
+@pytest.mark.cuda
+def test_cuda_cached_step_world1_lr_change_rerecords(cuda_world):
+    """An LR scheduler stepped between calls (halving at steps 2 and 5):
+    each change drops the plan whose graph froze the old ``lr`` (a plain
+    call), the next call records a new graph, and the parameters are the
+    eager run's bit for bit."""
+    import horovod_tpu_torch as hvd
+    scheds = {}
+
+    def before(i, model, opt):
+        if i == 0:
+            scheds[id(model)] = torch.optim.lr_scheduler.MultiStepLR(
+                opt.optimizer, milestones=[2, 5], gamma=0.5)
+        else:
+            scheds[id(model)].step()
+
+    eager, _, _ = _cached_trainer(hvd, 7, False, before=before)
+    got, _, st = _cached_trainer(hvd, 7, True, before=before)
+    print(f"cached_step with an LR scheduler: {st}")
+    assert st["builds"] == 3 and st["hits"] == 2
+    assert st["events"]["invalidated"] == 2
+    for a, b in zip(eager, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_cached_step_world1_replays_after_in_place_restore(cuda_world):
+    """``TorchState`` commits after step 2; steps 3-4 replay, ``restore()``
+    writes the commit back into the same tensors, and steps 5-6 replay the
+    same graph (no record, no drop). The parameters are the eager run's
+    through the same commit and restore, bit for bit."""
+    import horovod_tpu_torch as hvd
+    states = {}
+
+    def before(i, model, opt):
+        if i == 0:
+            states[id(model)] = hvd.elastic.TorchState(model=model,
+                                                       optimizer=opt)
+        elif i == 2:
+            states[id(model)].commit()
+        elif i == 4:
+            states[id(model)].restore()
+
+    eager, el, _ = _cached_trainer(hvd, 6, False, before=before)
+    got, cl, st = _cached_trainer(hvd, 6, True, before=before)
+    print(f"cached_step across restore(): {st}; losses {cl} / {el}")
+    assert st["builds"] == 1 and st["events"] == {"recorded": 1,
+                                                  "replayed": 5}
+    assert cl[4:] == cl[2:4] == el[2:4]
+    for a, b in zip(eager, got):
+        assert torch.equal(a, b)
+
+
+class _CardHidden:
+    shift = None  # a class attribute: no reach of the step walks classes
+
+
+@pytest.mark.cuda
+def test_cuda_cached_step_world1_hidden_tensor_is_unplannable(cuda_world):
+    """A step that reads a tensor neither passed nor reached (a class
+    attribute) cannot be checked for moves: its capture names it, the
+    signature is UNPLANNABLE (one fallback) and every call runs plain,
+    which still trains as the eager steps do."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import dispatch_cache, gspmd_cache
+    dev = hvd.device()
+    out = {}
+    for cached in (False, True):
+        dispatch_cache.reset()
+        gspmd_cache.reset_stats()
+        torch.manual_seed(0)
+        model = torch.nn.Linear(8, 4, device=dev)
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                       lr=0.1))
+        _CardHidden.shift = torch.ones(4, device=dev)
+        x = torch.randn(3, 8, device=dev,
+                        generator=torch.Generator(dev).manual_seed(1))
+
+        def train_step(t):
+            opt.zero_grad(set_to_none=False)
+            ((model(t) + _CardHidden.shift) ** 2).mean().backward()
+            opt.step()
+
+        for _ in range(3):
+            (hvd.cached_step(train_step) if cached else train_step)(x)
+        out[cached] = [p.detach().clone() for p in model.parameters()]
+    st = gspmd_cache.stats()
+    _CardHidden.shift = None
+    assert st["builds"] == 0 and st["hits"] == 0
+    assert st["events"] == {"fallback": 1}
+    for a, b in zip(out[False], out[True]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_cached_step_world1_refuses_numpy_arguments(cuda_world):
+    """A numpy argument would be read from host memory a graph cannot
+    follow: refused with an error before the step runs."""
+    import horovod_tpu_torch as hvd
+    model = torch.nn.Linear(8, 4, device=hvd.device())
+
+    def train_step(x):
+        return model(torch.from_numpy(x).to(hvd.device())).sum()
+
+    with pytest.raises(TypeError, match="numpy"):
+        hvd.cached_step(train_step)(torch.zeros(1, device=hvd.device()),
+                                    np.zeros((3, 8), np.float32))
+
+
+def _card_cached_step_rank(out_path: str) -> None:
+    """Four cards: the full-width trainer eagerly twice (its own spread)
+    and under ``cached_step``, from one seed."""
+    import json
+
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    try:
+        off, _, _ = _cached_trainer(hvd, 5, False, full=True)
+        again, _, _ = _cached_trainer(hvd, 5, False, full=True)
+        on, losses, st = _cached_trainer(hvd, 5, True, full=True)
+        flat = lambda ps: torch.cat([p.reshape(-1).float()  # noqa: E731
+                                     for p in ps]).cpu().numpy()
+        np.savez(out_path, off=flat(off), again=flat(again), on=flat(on),
+                 losses=np.asarray(losses), stats=json.dumps(st))
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_cached_step_trainer_bitwise(four_cards, tmp_path):
+    """Four cards, the full-width trainer data-parallel with NCCL inside
+    the graph: one record and four replays a rank, no fallback, and every
+    rank's parameters equal its eager run's (bitwise, or within the eager
+    run's own spread) and rank 0's."""
+    import json
+
+    from test_torch_world2 import run_world
+    ranks = run_world("_card_cached_step_rank", tmp_path, size=4,
+                      module="test_torch_cuda")
+    for r, res in enumerate(ranks):
+        st = json.loads(str(res["stats"]))
+        spread = float(np.abs(res["off"] - res["again"]).max())
+        diff = float(np.abs(res["off"] - res["on"]).max())
+        print(f"rank {r}: cached_step {st}; parameters against eager "
+              f"{diff:.3g} (eager spread {spread:.3g}); losses "
+              f"{res['losses'].tolist()}")
+        assert st["builds"] == 1 and st["events"] == {"recorded": 1,
+                                                      "replayed": 4}, r
+        assert diff == 0.0 or diff <= spread, r
+        np.testing.assert_array_equal(res["on"], ranks[0]["on"])
+
+
+def _card_peer_restore_rank(out_path: str) -> None:
+    """Four cards: ``TorchState`` over a small TransformerLM on the card,
+    three commits; the last rank then becomes a fresh joiner (other
+    parameters and Adam state, one commit) and ``sync()`` pulls its shards
+    from the survivors over the KV store."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import (TransformerConfig, TransformerLM,
+                                          lm_loss)
+    hvd.init()
+    try:
+        r, n, dev = hvd.rank(), hvd.size(), hvd.device()
+        cfg = TransformerConfig(vocab_size=1000, num_layers=2,
+                                max_seq_len=512, attn_mode="ulysses")
+        model = TransformerLM(cfg, device=dev)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        opt = hvd.DistributedOptimizer(torch.optim.Adam(
+            model.parameters(), lr=1e-3, capturable=True))
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, 1000, size=(2, 512))).to(dev)
+
+        def step():
+            opt.zero_grad(set_to_none=False)
+            lm_loss(model(tokens), tokens).backward()
+            opt.step()
+
+        state = hvd.elastic.TorchState(model=model, optimizer=opt, epoch=0)
+        for i in range(3):
+            step()
+            state.epoch = i + 1
+            state.commit()
+        ptrs = [p.data_ptr() for p in model.parameters()]
+        if r == n - 1:
+            # other values in the same tensors, with no collective (a
+            # step's gradient hooks would start the buckets' allreduce)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(-0.5)
+                    for v in opt.state[p].values():
+                        v.add_(1.0)
+            state.epoch = 0
+            state.save()
+            state._commits = 1
+        state.sync()
+        torch.cuda.synchronize()
+        snap = hvd.metrics.snapshot()
+        pulled = sum(v for (name, _), v in snap.items()
+                     if name == "hvd_ckpt_peer_shards_pulled_total")
+        params = torch.cat([p.detach().reshape(-1).float()
+                            for p in model.parameters()]).cpu().numpy()
+        moments = torch.cat([v.reshape(-1).float()
+                             for p in model.parameters()
+                             for k, v in sorted(opt.state[p].items())]
+                            ).cpu().numpy()
+        np.savez(out_path, params=params, moments=moments,
+                 epoch=state.epoch, pulled=pulled,
+                 in_place=ptrs == [p.data_ptr()
+                                   for p in model.parameters()])
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_peer_restore_bitwise(four_cards, tmp_path):
+    """Four cards: after ``TorchState.sync()`` the joiner holds rank 0's
+    committed parameters and Adam state bit for bit, in the same tensors,
+    having pulled one shard from each of the three survivors."""
+    from test_torch_world2 import run_world
+    ranks = run_world("_card_peer_restore_rank", tmp_path, size=4,
+                      module="test_torch_cuda", kv=True,
+                      env={"HVD_DYNAMIC_ENGINE": "0"})
+    for r, res in enumerate(ranks):
+        print(f"rank {r}: epoch {int(res['epoch'])}, shards pulled "
+              f"{int(res['pulled'])}")
+        assert int(res["epoch"]) == 3 and bool(res["in_place"]), r
+        np.testing.assert_array_equal(res["params"], ranks[0]["params"])
+        np.testing.assert_array_equal(res["moments"], ranks[0]["moments"])
+    assert [int(res["pulled"]) for res in ranks] == [0, 0, 0, 3]
