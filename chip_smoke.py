@@ -111,6 +111,21 @@ Phases, each of which exits non-zero on failure:
    optimizer restored from the sealed step (``sharded_restore_or_none``)
    and another from the ``Checkpointer`` each take 2 more steps, and their
    parameters must equal the uninterrupted run's bit for bit;
+7g. launch: the trainer (as in 6) through ``python -m
+   horovod_tpu_torch.runner.launch -np 1`` and started directly, each in a
+   process of its own (``--trainer-worker``): losses and parameters
+   bitwise equal, K1-K3 ``num_layers x STEPS`` launches, the worker on
+   the launcher's card and KV store; the launcher's start-up time (spawn
+   to ``init()`` done, against the direct run's);
+7h. elastic: the cached trainer (as in 7e) under ``hvd.elastic.run`` with
+   ``TorchState``, a commit a step (``--elastic-worker``), through the
+   elastic launcher at ``--min-np 1 --max-np 1`` (this process runs its
+   driver): at the worker's request the driver publishes a new round that
+   keeps the slot, and the worker re-forms in its own process
+   (``HostsUpdatedInterrupt`` once, a new NCCL group on the same card, the
+   cached step recorded again: 2 records); its losses and parameters must
+   be bitwise those of the same run uninterrupted; the re-form's time,
+   interrupt to training and to the new round's first step's end;
 8. pipeline: the pipeline twin (``examples/pipeline_train.py --model
    full``: vocab 32000, d_model 512, hidden 2048, 4 residual-MLP blocks, 8
    x 2048 tokens, bf16) at pp 1 with 4 microbatches for 5 steps: the loss
@@ -158,9 +173,10 @@ with the per-step count of buckets started during the backward pass), a
 ``{"moe": ..., "pipeline": ...}`` one, one ``{"kernels": [...]}`` JSON
 object (each kernel's launches on the trainer's, the k=2 run's, the
 Adasum run's, the negotiation phase's, the fusion phase's, the cached
-step's and the MoE run's main path), preceded by ``{"adasum": ...}``,
-``{"negotiation": ...}``, ``{"fusion": ...}`` and ``{"cached_step": ...,
-"checkpoint": ...}``,
+step's, the launched trainer's, the re-formed trainer's and the MoE
+run's main path), preceded by ``{"adasum": ...}``,
+``{"negotiation": ...}``, ``{"fusion": ...}``, ``{"cached_step": ...,
+"checkpoint": ...}`` and ``{"launch": ..., "elastic": ...}``,
 the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -1966,6 +1982,326 @@ def phase_checkpoint(dev):
                                                 "checkpointer": ckpt_diff}}
 
 
+TRAINER_WORKER_FLAG = "--trainer-worker"
+ELASTIC_WORKER_FLAG = "--elastic-worker"
+LAUNCH = [sys.executable, "-m", "horovod_tpu_torch.runner.launch"]
+# The elastic phase: the cached trainer's committed steps, and the commit
+# after which the worker asks the driver for a new round (it re-forms at
+# the next one).
+ELASTIC_STEPS, ELASTIC_REFORM_AT = 6, 2
+REFORM_REQUEST_KEY = "chip_smoke/reform"
+
+
+def _params_sha256(model) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def trainer_worker(out_path: str) -> None:
+    """The ``[launch]`` phase's worker: the trainer phase's run (its seed,
+    Adam, STEPS steps on BATCH x SEQ tokens) in the world the environment
+    gives, a world of one where it gives none; writes the losses, the
+    kernel launches and its start-up clock to ``out_path`` (its
+    ``{rank}``, where it has one, becomes the rank)."""
+    t_main = time.time()
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import TransformerConfig, TransformerLM
+    from horovod_tpu_torch.ops import flash
+    hvd.init()
+    t_init = time.time()
+    dev = hvd.device()
+    cfg = TransformerConfig(attn_mode="ulysses")
+    model = TransformerLM(cfg, device=dev)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-3))
+    tokens = torch.from_numpy(
+        synthetic_tokens(BATCH, SEQ, cfg.vocab_size, 0)).to(dev)
+    flash.reset_launch_counts()
+    losses = [_train_step(model, opt, tokens) for _ in range(STEPS)]
+    torch.cuda.synchronize()
+    out = {"losses": losses, "launches": dict(flash.launches),
+           "layers": cfg.num_layers, "t_main": t_main, "t_init": t_init,
+           "t_done": time.time(), "world": hvd.size(), "rank": hvd.rank(),
+           "device": str(dev), "backend": dist.get_backend(),
+           "params_sha256": _params_sha256(model),
+           "env": {k: os.environ.get(k) for k in (
+               "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_PORT",
+               "HVD_CUDA_DEVICE", "HVD_KV_ADDR")}}
+    hvd.shutdown()
+    with open(out_path.format(rank=out["rank"]), "w") as f:
+        json.dump(out, f)
+
+
+def elastic_worker(out_path: str, mode: str) -> None:
+    """The ``[elastic]`` phase's worker: the cached trainer (``Adam(
+    capturable=True)``, ``hvd.cached_step``) under ``hvd.elastic.run`` with
+    ``TorchState``, committing every one of ELASTIC_STEPS steps. With
+    ``mode`` ``elastic`` (under the elastic launcher), after commit
+    ELASTIC_REFORM_AT it asks the driver for a new round over the KV
+    store and waits for the notification, so the next commit raises
+    ``HostsUpdatedInterrupt`` and the world re-forms in this process; with
+    ``reference`` it runs the same commits without a launcher and
+    uninterrupted. Writes the losses, a digest of the parameters, the
+    cached step's records, the process groups seen, the re-form's times
+    and the kernel launches to ``out_path``."""
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics, runtime
+    from horovod_tpu_torch.elastic import HostsUpdatedInterrupt
+    from horovod_tpu_torch.ops import dispatch_cache, flash, gspmd_cache
+    hvd.init()
+    dev = hvd.device()
+    cfg, model, opt, make_step = _cached_trainer(dev)
+    tokens = torch.from_numpy(synthetic_tokens(BATCH, SEQ, 32000, 0)).to(dev)
+    state = hvd.elastic.TorchState(model=model, optimizer=opt, step=0,
+                                   losses=[])
+    info = {"worlds": [], "interrupt_t": None, "entered_t": None,
+            "first_step_end_t": None}
+    check = state.check_host_updates
+
+    def timed_check():
+        try:
+            check()
+        except HostsUpdatedInterrupt:
+            info["interrupt_t"] = time.perf_counter()
+            raise
+
+    state.check_host_updates = timed_check
+    captures = []
+    capture = gspmd_cache.CachedStep._capture
+
+    def counted_capture(self, *args):
+        before = dict(flash.launches)
+        got = capture(self, *args)
+        captures.append({k: v - before[k] for k, v in flash.launches.items()})
+        return got
+
+    gspmd_cache.CachedStep._capture = counted_capture
+    gspmd_cache.reset_stats()
+    dispatch_cache.reset_stats()
+    flash.reset_launch_counts()
+
+    @hvd.elastic.run
+    def train(state):
+        group = dist.distributed_c10d._get_default_group()
+        info["worlds"].append({
+            "generation": runtime.generation(), "size": hvd.size(),
+            "backend": dist.get_backend(), "group": id(group),
+            "master_port": os.environ.get("MASTER_PORT"),
+            "device": str(hvd.device())})
+        if info["interrupt_t"] is not None:
+            info["entered_t"] = time.perf_counter()
+        while state.step < ELASTIC_STEPS:
+            loss = hvd.cached_step(make_step())(tokens)
+            state.losses = state.losses + [loss.item()]
+            if info["interrupt_t"] is not None \
+                    and info["first_step_end_t"] is None:
+                torch.cuda.synchronize()
+                info["first_step_end_t"] = time.perf_counter()
+            state.step += 1
+            state.commit()
+            if mode == "elastic" and state.step == ELASTIC_REFORM_AT \
+                    and info["interrupt_t"] is None:
+                from horovod_tpu_torch.elastic.rendezvous import (
+                    get_worker_rendezvous)
+                get_worker_rendezvous().kv.put(REFORM_REQUEST_KEY, b"1")
+                deadline = time.monotonic() + 120
+                while state._host_messages.empty():
+                    if time.monotonic() > deadline:
+                        raise TimeoutError("no new round was announced")
+                    time.sleep(0.01)
+        return state.losses
+
+    try:
+        losses = train(state)
+    finally:
+        gspmd_cache.CachedStep._capture = capture
+    torch.cuda.synchronize()
+    total = dict(flash.launches)
+    eager = {k: total[k] - sum(c[k] for c in captures) for k in total}
+    events = {dict(k).get("kind"): int(v) for k, v in
+              metrics.ELASTIC_EVENTS.series().items()}
+    out = {"losses": losses, "params_sha256": _params_sha256(model),
+           "gspmd": gspmd_cache.stats(), "layers": cfg.num_layers,
+           "dispatch_invalidations":
+               dispatch_cache.stats()["invalidations"],
+           "worlds": info["worlds"], "events": events,
+           "launches_eager": eager, "recorded_at_capture": captures}
+    if info["interrupt_t"] is not None:
+        out["reform_s"] = {
+            "interrupt_to_training": info["entered_t"] - info["interrupt_t"],
+            "interrupt_to_first_step_end":
+                info["first_step_end_t"] - info["interrupt_t"]}
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def _worker_run(argv, what: str, timeout: float = 600) -> float:
+    """Run ``argv`` with its output relayed; returns its wall time."""
+    t0 = time.time()
+    proc = subprocess.run(argv, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        print(proc.stdout[-8000:])
+    require(proc.returncode == 0, f"{what} exited {proc.returncode}")
+    return t0
+
+
+def phase_launch(dev) -> tuple[dict, dict]:
+    """The trainer through the launcher: ``python -m
+    horovod_tpu_torch.runner.launch -np 1 -- <trainer>`` on NCCL against
+    the same trainer started directly (:func:`trainer_worker`, each in a
+    process of its own): the per-step losses and the parameters must be
+    bitwise equal, K1-K3 launched ``num_layers x STEPS`` times, and the
+    launched worker must hold the launcher's contract (its card from the
+    pool, the KV store). Prints the launcher's start-up time: spawn to
+    ``init()`` done, launched against direct."""
+    import tempfile
+    me = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, f"{k}.json")
+                 for k in ("direct", "launched")}
+        t_direct = _worker_run([sys.executable, me, TRAINER_WORKER_FLAG,
+                                paths["direct"]], "the direct trainer")
+        t_launch = _worker_run(LAUNCH + ["-np", "1", "--", sys.executable,
+                                         me, TRAINER_WORKER_FLAG,
+                                         paths["launched"]],
+                               "the launched trainer")
+        runs = {}
+        for k in paths:
+            with open(paths[k]) as f:
+                runs[k] = json.load(f)
+    direct, launched = runs["direct"], runs["launched"]
+    startup = {"direct_s": direct["t_init"] - t_direct,
+               "launched_s": launched["t_init"] - t_launch}
+    startup["launcher_s"] = startup["launched_s"] - startup["direct_s"]
+    print(f"[launch] launched worker: world {launched['world']} on "
+          f"{launched['device']} ({launched['backend']}), env "
+          f"{launched['env']}")
+    print(f"[launch] losses direct {['%.6f' % x for x in direct['losses']]}"
+          f", launched {['%.6f' % x for x in launched['losses']]}; bitwise "
+          f"{launched['losses'] == direct['losses']}, parameters bitwise "
+          f"{launched['params_sha256'] == direct['params_sha256']}")
+    print(f"[launch] start-up, spawn to init() done: direct "
+          f"{startup['direct_s']:.2f} s, through the launcher "
+          f"{startup['launched_s']:.2f} s (the launcher's own "
+          f"{startup['launcher_s']:.2f} s) on {nvidia_smi()}")
+    print(f"[launch] kernel launches: launched {launched['launches']}, "
+          f"direct {direct['launches']}")
+    want = launched["layers"] * STEPS
+    require(launched["world"] == 1 and launched["backend"] == "nccl"
+            and launched["env"]["HVD_CUDA_DEVICE"] == "0"
+            and launched["env"]["HVD_KV_ADDR"] is not None,
+            f"launch: the launched worker's world {launched}")
+    require(launched["losses"] == direct["losses"]
+            and launched["params_sha256"] == direct["params_sha256"],
+            "launch: the launched trainer is not bitwise the direct one")
+    require(all(math.isfinite(x) for x in launched["losses"])
+            and launched["losses"][-1] < launched["losses"][0],
+            f"launch: losses {launched['losses']}")
+    require(all(v == want for v in launched["launches"].values())
+            and launched["launches"] == direct["launches"],
+            f"launch: K1-K3 launches {launched['launches']}, want {want}")
+    return {"losses": launched["losses"], "startup": startup,
+            "bitwise": True}, launched["launches"]
+
+
+def phase_elastic(dev) -> tuple[dict, dict]:
+    """The cached trainer under ``hvd.elastic.run`` through the elastic
+    launcher at ``--min-np 1 --max-np 1`` (:func:`elastic_worker`): at the
+    worker's request after commit ELASTIC_REFORM_AT, this process (the
+    launcher's side: :func:`elastic.launch.start_elastic`) publishes a new
+    round through the driver that keeps rank 0's slot. The worker must
+    re-form in its own process: ``HostsUpdatedInterrupt`` once, its graphs
+    dropped, its NCCL process group ended and made anew (a new generation
+    and group on the same card), ``cached_step`` recording again (2 records
+    in all), and its losses and parameters after ELASTIC_STEPS steps
+    bitwise those of the same run uninterrupted (started directly).
+    Prints the re-form's time, interrupt to the first step of the new
+    round."""
+    import tempfile
+    from horovod_tpu_torch.elastic import launch as elastic_launch
+    from horovod_tpu_torch.elastic.driver import ROUND_KEY
+    from horovod_tpu_torch.runner import launch as launch_mod
+    me = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "reference.json")
+        el_path = os.path.join(tmp, "elastic.json")
+        _worker_run([sys.executable, me, ELASTIC_WORKER_FLAG, ref_path,
+                     "reference"], "the uninterrupted elastic trainer")
+        args = launch_mod.parse_args(
+            ["--min-np", "1", "--max-np", "1", "-H", "localhost:1", "--",
+             sys.executable, me, ELASTIC_WORKER_FLAG, el_path, "elastic"])
+        job = elastic_launch.start_elastic(args, args.command[1:])
+        try:
+            deadline = time.monotonic() + 600
+            while job.infra.kv.get(REFORM_REQUEST_KEY) is None:
+                require(not job.driver.finished()
+                        and time.monotonic() < deadline,
+                        "elastic: the worker never asked for a new round")
+                time.sleep(0.01)
+            job.driver.resume()  # a new round; the slot stays
+            rounds = int(job.infra.kv.get(ROUND_KEY))
+        finally:
+            rc = job.wait()
+        require(rc == 0, f"elastic: the launcher's job exited {rc}")
+        with open(ref_path) as f:
+            ref = json.load(f)
+        with open(el_path) as f:
+            el = json.load(f)
+    worlds = el["worlds"]
+    events = el["gspmd"]["events"]
+    layers = el["layers"]
+    print(f"[elastic] rounds {rounds}; worlds the worker trained in "
+          f"{worlds}; recovery events {el['events']}")
+    print(f"[elastic] cached step: builds {el['gspmd']['builds']}, events "
+          f"{events}; dispatch invalidations "
+          f"{el['dispatch_invalidations']}")
+    print(f"[elastic] losses {['%.6f' % x for x in el['losses']]} against "
+          f"the uninterrupted run's: bitwise {el['losses'] == ref['losses']}"
+          f"; parameters bitwise "
+          f"{el['params_sha256'] == ref['params_sha256']}")
+    print(f"[elastic] re-form: interrupt to training again "
+          f"{el['reform_s']['interrupt_to_training'] * 1e3:.1f} ms, to the "
+          f"end of the new round's first step (its record and capture) "
+          f"{el['reform_s']['interrupt_to_first_step_end'] * 1e3:.1f} ms "
+          f"on {nvidia_smi()}")
+    print(f"[elastic] K1-K3 in the records' eager runs {el['launches_eager']}"
+          f" (recorded at each capture {el['recorded_at_capture']})")
+    require(rounds == 2 and len(worlds) == 2
+            and el["events"].get("hosts-updated") == 1
+            and "peer-failure" not in el["events"],
+            f"elastic: want one re-form by HostsUpdatedInterrupt, got "
+            f"{worlds}, {el['events']}")
+    require(all(w["backend"] == "nccl" and w["size"] == 1
+                and w["device"] == str(dev) for w in worlds)
+            and worlds[0]["generation"] != worlds[1]["generation"]
+            and worlds[0]["master_port"] != worlds[1]["master_port"],
+            f"elastic: the process group was not made anew: {worlds}")
+    require(events.get("recorded") == 2 and el["gspmd"]["builds"] == 2
+            and events.get("fallback", 0) == 0
+            and el["dispatch_invalidations"] >= 1,
+            f"elastic: cached_step {el['gspmd']}, want 2 records")
+    require(el["losses"] == ref["losses"]
+            and el["params_sha256"] == ref["params_sha256"],
+            "elastic: the re-formed run is not bitwise the uninterrupted one")
+    require(all(v == 2 * layers for v in el["launches_eager"].values()),
+            f"elastic: K1-K3 launches {el['launches_eager']}, want "
+            f"{2 * layers} each (two records' eager steps)")
+    return {"losses": el["losses"], "reform_s": el["reform_s"],
+            "gspmd": el["gspmd"], "worlds": worlds,
+            "bitwise": True}, el["launches_eager"]
+
+
 def phase_moe(dev):
     """The MoE TransformerLM at full width with one expert at NCCL world 1:
     ``TransformerConfig(attn_mode="ulysses", moe_experts=1)``, bf16, 8 x
@@ -2575,6 +2911,11 @@ def main(argv) -> int:
     if len(argv) == 1 and argv[0] in children:  # a child of run_child
         print(json.dumps(children[argv[0]](dev)))
         return 0
+    workers = {TRAINER_WORKER_FLAG: trainer_worker,
+               ELASTIC_WORKER_FLAG: elastic_worker}
+    if argv and argv[0] in workers:  # a worker of [launch] or [elastic]
+        workers[argv[0]](*argv[1:])
+        return 0
     card = nvidia_smi()
     print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -2596,6 +2937,8 @@ def main(argv) -> int:
     fusion, fusion_launches = timed("fusion", phase_fusion, dev)
     cached, cached_launches = timed("cached step", phase_cached_step, dev)
     ckpt = timed("checkpoint", phase_checkpoint, dev)
+    launch, launch_launches = timed("launch", phase_launch, dev)
+    elastic, elastic_launches = timed("elastic", phase_elastic, dev)
     moe, moe_launches = timed("moe", phase_moe, dev)
     pipeline = timed("pipeline", phase_pipeline, dev)
     long_ctx = timed("long context", phase_long_context)
@@ -2611,6 +2954,8 @@ def main(argv) -> int:
         row["launches_negotiation"] = neg_launches[name]
         row["launches_fusion"] = fusion_launches[name]
         row["launches_cached_step"] = cached_launches[name]
+        row["launches_launch"] = launch_launches[name]
+        row["launches_elastic"] = elastic_launches[name]
         row["launches_long_context"] = {
             mode: res["launches_per_step"][-1][name]
             for mode, res in long_ctx.items()}
@@ -2632,6 +2977,7 @@ def main(argv) -> int:
     print(json.dumps({"negotiation": neg}))
     print(json.dumps({"fusion": fusion}))
     print(json.dumps({"cached_step": cached, "checkpoint": ckpt}))
+    print(json.dumps({"launch": launch, "elastic": elastic}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -707,8 +707,8 @@ def _transfer_timeout_s() -> float:
     """A shard pull's deadline: past the health watchdog's budget (one
     beat interval and the no-beat timeout), so that a dead owner shows as
     the watchdog's typed failure first; at least 20 s."""
-    return max(2.0 * (envs.health_interval_s() + envs.health_timeout_s()),
-               20.0)
+    from . import health
+    return max(2.0 * health.watchdog_budget_s(), 20.0)
 
 
 def _kv_client():

@@ -85,8 +85,12 @@ SITES = {
     "engine_service.py::DynamicService._on_peer_failure":
         ("service", LOCAL),
     "engine_service.py::DynamicService.join": ("service", LOCAL),
-    # dispatch plan builds: a plan cache is a process's own
+    # dispatch plan builds, and the shelf of an elastic re-form: a plan
+    # cache is a process's own
     "ops/dispatch_cache.py::store": ("plans", LOCAL),
+    "ops/dispatch_cache.py::shelve_for_reform": ("plans", LOCAL),
+    "ops/dispatch_cache.py::restore_for_reform": ("plans", LOCAL),
+    "ops/dispatch_cache.py::_warm_graft_locked": ("plans", LOCAL),
 }
 
 _EPOCH_STREAM = "epoch"  # knob-override epoch moves, fed by the recorder

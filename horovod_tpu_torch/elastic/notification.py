@@ -16,12 +16,10 @@ import threading
 
 from ..utils import envs
 from ..utils import logging as hvd_logging
+from .driver import NOTIFY_KEY  # the driver writes (round, HostUpdateResult)
 from .state import HostUpdateResult
 
 POLL_INTERVAL_S = 0.5
-
-# the KV key the elastic driver writes a (round, HostUpdateResult) pair to
-NOTIFY_KEY = "elastic/notify"
 
 
 class WorkerNotificationManager:

@@ -30,6 +30,7 @@ import torch
 from .. import checkpoint as _ckpt
 from .. import metrics as _metrics
 from ..exceptions import HorovodInternalError, HostsUpdatedInterrupt
+from ..utils import faults as _faults
 from ..utils.tree import flatten, unflatten
 
 
@@ -62,6 +63,9 @@ class State:
         self._last_updated_timestamp = 0
         self._reset_callbacks = []
         self._commits = 0
+        # the kind of the recovery in progress: "peer-failure" or
+        # "hosts-updated" (run_fn sets it before the reset)
+        self.last_recovery: str | None = None
 
     def register_reset_callbacks(self, callbacks):
         """Register callbacks run after every reset, e.g. to rescale the
@@ -86,6 +90,9 @@ class State:
         so committing less often trades speed against the steps a failure
         loses, as in the reference."""
         self._commits += 1
+        # the chaos seam: `worker:crash:rank=R:at_step=N` exits rank R at
+        # its N-th commit, and the membership actions start churn here
+        _faults.inject("worker", rank=self._rank(), step=self._commits)
         _policy_note_commit()
         self.save()
         # the state plane's seam: with HVD_CKPT_DIR set, every
@@ -204,6 +211,8 @@ class _OptimizerHandler:
         return _ckpt.host_tree(self._opt.state_dict())
 
     def load(self, saved) -> None:
+        if hasattr(self.value, "abandon_pass"):  # a DistributedOptimizer
+            self.value.abandon_pass()
         opt = self._opt
         params = [p for g in opt.param_groups for p in g["params"]]
         state = saved.get("state", {})
@@ -446,6 +455,9 @@ def run_fn(func, reset):
                         state.restore()
 
                 _metrics.ELASTIC_EVENTS.inc(labels={"kind": kind})
+                # what ended the world: a reset after a peer failure
+                # aborts it instead of draining it
+                state.last_recovery = kind
                 reset()
                 state.on_reset()
         finally:

@@ -224,6 +224,34 @@ class DynamicService:
         # set once a JOIN is seen: a joined rank learns of the collectives
         # it owes zeros to from real rounds only, so serving ends for good
         self._rc_join_latch = False
+        # the elastic warm re-form: adopt the shelved entries of a
+        # predecessor of the same shape as warm (not servable), publish
+        # this rank's digest of them, and resolve at the first cycle: equal
+        # digests on every member confirm them after one round; any other
+        # answer (a fresh member publishes the empty digest) drops them
+        self._rc_warm_pending = False
+        self._rc_shape_key = ("proc", pset_key, world,
+                              getattr(transport, "rank", 0))
+        if (self._rcache is not None and envs.elastic_warm_enabled()
+                and getattr(transport, "kv", None) is not None
+                and getattr(transport, "prefix", None) is not None):
+            shelved = _rcache.take_shelved(self._rc_shape_key)
+            if shelved:
+                n = self._rcache.restore_warm(shelved)
+                hvd_logging.info(
+                    "response cache: restored %d warm entries for shape "
+                    "%s", n, self._rc_shape_key)
+            try:
+                # every member publishes (an empty digest is the veto);
+                # only a member holding warm entries gathers
+                transport.kv.put(f"{transport.prefix}/warm/{transport.rank}",
+                                 self._rcache.warm_digest())
+                self._rc_warm_pending = self._rcache.warm_count() > 0
+            except Exception as e:
+                hvd_logging.warning(
+                    "response cache: warm digest publish failed (%s); "
+                    "cold re-form", e)
+                self._rcache.drop_warm()
         self._cycle = 0
         self._delivered = 0  # plans delivered: the agreed order
         self._mu = threading.Lock()
@@ -506,9 +534,22 @@ class DynamicService:
         except Exception as e:
             q.error = e
 
+    def _shelve_rcache(self) -> None:
+        """Shelve the coordinator cache's entries under this service's
+        shape, for the service of a re-formed world of the same shape."""
+        if (self._rcache is not None and self._failure is None
+                and envs.elastic_warm_enabled()):
+            items = self._rcache.export_entries()
+            if items:
+                _rcache.shelve(self._rc_shape_key, items)
+
     def stop(self):
         _conformance.record("engine_service.py::DynamicService.stop",
                             "svc_stop", (self.pset_key,))
+        # a service stopped on purpose (a re-form's teardown, the job's
+        # end) shelves its cache; one failed by a peer's death already
+        # invalidated it: a broken world's proof does not carry over
+        self._shelve_rcache()
         self._shutdown.set()
         self._tick.set()  # the adaptive sleep waits on _tick
         if self._watchdog is not None:
@@ -671,6 +712,14 @@ class DynamicService:
         _conformance.record(
             "engine_service.py::DynamicService._on_peer_failure",
             "svc_abort", (self.pset_key, dead_rank))
+        # a peer that announced its departure did not break the world: its
+        # owed work fails all the same, but the confirmed entries shelve as
+        # at a clean teardown (the successor's digest round proves them
+        # again); without this one slow survivor's veto cold-starts the
+        # whole next world. Before _fail_all, which invalidates the cache.
+        if self._watchdog is not None and self._watchdog.peer_left(
+                dead_rank):
+            self._shelve_rcache()
         self._fail_all(str(exc), exc)
         # the fusion cycle's queued work cannot complete either: its
         # handles raise at synchronize()
@@ -681,6 +730,46 @@ class DynamicService:
                 "peer failure aborted %d queued async collectives", aborted)
         self._shutdown.set()
         self._tick.set()
+
+    def _resolve_warm(self) -> None:
+        """The one warm-digest round after a warm re-form: every member's
+        digest equal and not empty means every member restored the same
+        entries, and they are confirmed on every rank at this same point,
+        so serving resumes after one real round a name instead of two.
+        Any disagreement, or a gather that fails, drops them."""
+        self._rc_warm_pending = False
+        rc = self._rcache
+        transport = self.transport
+        if rc is None:
+            return
+        try:
+            got = transport.kv.gather(f"{transport.prefix}/warm",
+                                      transport.world_size,
+                                      timeout=EXCHANGE_TIMEOUT_S)
+            digests = set(got.values())
+            mine = rc.warm_digest()
+        except Exception as e:
+            dropped = rc.drop_warm()
+            if dropped:
+                hvd_logging.warning(
+                    "response cache: warm digest exchange failed (%s); "
+                    "dropped %d warm entries (cold re-form)", e, dropped)
+            return
+        if len(digests) == 1 and mine in digests and mine != b"\x00" * 8:
+            n = rc.confirm_warm()
+            if n:
+                _metrics.ELASTIC_WARM_REUSE.inc(
+                    n, labels={"kind": "response"})
+                hvd_logging.info(
+                    "response cache: %d warm entries confirmed after one "
+                    "digest round (shape %s)", n, self._rc_shape_key)
+        else:
+            dropped = rc.drop_warm()
+            if dropped:
+                hvd_logging.info(
+                    "response cache: warm digests differ (a fresh member "
+                    "or another shelf); dropped %d entries (cold "
+                    "re-form)", dropped)
 
     def _awaiting(self) -> bool:
         """Whether a submitted request still waits for its plan."""
@@ -739,6 +828,8 @@ class DynamicService:
         # the canonical cycle (dynamic.drive_cycle): bits against the
         # pre-ingest cache on every member, the AND-served set committed
         # first, then the ingest skips the served names
+        if self._rc_warm_pending:
+            self._resolve_warm()
         busy = self._awaiting()
         mine = self.engine.pop_requests()
         mybits = self.engine.cache_bits()
@@ -850,7 +941,16 @@ class DynamicService:
 
 _services: dict = {}  # set key -> DynamicService
 _service_lock = threading.Lock()
-_generation = 0  # resets so far: keeps a new world's keys apart
+# resets so far of each world (its MASTER_ADDR:MASTER_PORT), which keep a
+# new world's keys apart from the last one's at the same address; an
+# elastic round's fresh port starts its count at 0 on survivors and fresh
+# workers alike
+_generations: dict = {}
+
+
+def _world_endpoint() -> str:
+    return "{}:{}".format(os.environ.get("MASTER_ADDR", "local"),
+                          os.environ.get("MASTER_PORT", "0"))
 
 
 def _set_key(pset) -> str:
@@ -898,9 +998,9 @@ def get_service(pset=None) -> DynamicService | None:
                           envs.get_int(envs.KV_PORT, 0),
                           secret=envs.get(envs.SECRET_KEY))
             # keys scoped to this world instance and this set
-            prefix = "engine/{}:{}/g{}/ps{}".format(
-                os.environ.get("MASTER_ADDR", "local"),
-                os.environ.get("MASTER_PORT", "0"), _generation, key)
+            endpoint = _world_endpoint()
+            prefix = "engine/{}/g{}/ps{}".format(
+                endpoint, _generations.get(endpoint, 0), key)
             # past one leader group a round runs member -> leader ->
             # cross-leader -> fan-down (docs/negotiation.md); a smaller
             # world keeps the flat exchange byte for byte
@@ -934,10 +1034,20 @@ def response_cache_stats() -> dict:
     return out
 
 
+def mark_leaving() -> None:
+    """Announce this rank's departure on purpose on every service's health
+    channel (an elastic worker whose slot is gone): its peers then do not
+    read its ceased beats as a death."""
+    with _service_lock:
+        svcs = list(_services.values())
+    for svc in svcs:
+        if svc._watchdog is not None:
+            svc._watchdog.mark_leaving()
+
+
 def reset_service() -> None:
     """Stop every service (at ``shutdown()``); auto-generated names start
     from zero again."""
-    global _generation
     # queued work was negotiated against the services going away: it
     # fails (its handles raise), and the plans that pinned them drop
     from .ops import collectives, dispatch_cache, fusion_cycle
@@ -949,6 +1059,7 @@ def reset_service() -> None:
         for svc in _services.values():
             svc.stop()
         _services.clear()
-        _generation += 1
+        endpoint = _world_endpoint()
+        _generations[endpoint] = _generations.get(endpoint, 0) + 1
     dispatch_cache.invalidate("engine service reset")
     collectives._auto_counters.clear()

@@ -52,10 +52,46 @@ from .utils import logging as hvd_logging
 from .utils import retry as _retry
 
 
+# Where an elastic worker's watchdog reports a peer's death on the
+# launcher's KV store, as {"dead_rank": r, "reason": ..., "round": R}: the
+# driver's PUT observer (elastic/bootstrap.py) hands it to
+# ElasticDriver.record_peer_failure, which blacklists the dead rank's host
+# and re-forms at once, without waiting for the dead process to be reaped.
+PEER_FAILURE_KEY_PREFIX = "health/peerfail/"
+
+
+def peer_failure_key(reporter_rank: int) -> str:
+    return f"{PEER_FAILURE_KEY_PREFIX}{reporter_rank}"
+
+
+def parse_peer_failure(key: str, payload: bytes):
+    """``(dead_rank, reason, round_id)`` where ``key`` records a peer
+    failure, else None (a malformed record is ignored: the process-exit
+    path still sees the failure). ``round_id`` is the elastic round the
+    reporter was in (-1 where unknown): ranks are numbered anew each
+    round, so the driver resolves the rank against the reporter's round
+    and a late report never blacklists an innocent successor."""
+    if not key.startswith(PEER_FAILURE_KEY_PREFIX):
+        return None
+    try:
+        body = json.loads(payload.decode())
+        return (int(body["dead_rank"]), str(body.get("reason", "")),
+                int(body.get("round", -1)))
+    except (ValueError, KeyError, UnicodeDecodeError):
+        return None
+
+
 def enabled() -> bool:
     """The watchdog runs while beats are on (``HVD_HEALTH_INTERVAL`` > 0;
     0 turns it off)."""
     return envs.health_interval_s() > 0.0
+
+
+def watchdog_budget_s() -> float:
+    """The longest a peer's death can go undeclared: one beat interval of
+    publish skew plus the no-beat timeout. Waits that promise to fail
+    over within the watchdog's budget size their deadlines from it."""
+    return envs.health_interval_s() + envs.health_timeout_s()
 
 
 class HealthWatchdog:
@@ -144,6 +180,28 @@ class HealthWatchdog:
             hvd_logging.warning("health: leave marker publish failed: %s",
                                 e)
 
+    def report_peer_failure(self, dead_rank: int, reason: str) -> None:
+        """Record a death on the launcher's KV store, where an elastic
+        driver reads it (nothing outside an elastic worker)."""
+        if not envs.get_bool(envs.ELASTIC):
+            return
+        try:
+            self.kv.put(peer_failure_key(self.rank), json.dumps(
+                {"dead_rank": dead_rank, "reason": reason,
+                 "round": envs.get_int(envs.ELASTIC_ROUND, -1)}).encode())
+        except Exception as e:
+            hvd_logging.warning("health: peer-failure publish failed: %s",
+                                e)
+
+    def peer_left(self, global_rank: int) -> bool:
+        """Whether ``global_rank`` announced a departure on purpose before
+        this watchdog's failure decision: its owed work fails all the
+        same, but the world is not broken, and warm state may shelve."""
+        with self._mu:
+            left = set(self._left)
+        return any(self.global_ranks[m] == global_rank
+                   for m in left if m < len(self.global_ranks))
+
     def _marked(self, what: str) -> dict[int, str]:
         """``{member: key}`` of the ``<prefix>/<what>/<member>`` markers;
         ``{}`` when the store cannot be read this tick."""
@@ -185,6 +243,10 @@ class HealthWatchdog:
         _metrics.HEALTH_PEER_FAILURES.inc(labels={"rank": rank})
         hvd_logging.error("health watchdog: peer rank %d failed: %s", rank,
                           reason)
+        if member not in self._left:
+            # a rank that left on purpose is no failure for the driver to
+            # blacklist
+            self.report_peer_failure(rank, reason)
         try:
             self.on_failure(rank, reason)
         except Exception:

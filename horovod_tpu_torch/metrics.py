@@ -452,6 +452,13 @@ ELASTIC_STEPS_LOST = counter(
     "In-flight steps rolled back by a failure restore (commit-per-step "
     "convention: each HorovodInternalError recovery counts its one "
     "uncommitted step; graceful interrupts count zero).")
+ELASTIC_WARM_REUSE = counter(
+    "hvd_elastic_warm_reuse_total",
+    "Shape-keyed state reused across an elastic re-form, by kind: "
+    "plan (dispatch plans grafted from the warm pool), step (whole-step "
+    "capture plans), response (coordinator response-cache entries "
+    "re-armed after the warm confirmation round).",
+    labels=("kind",), always=True)
 
 # -- checkpoint state plane (checkpoint.py) ------------------------------
 CKPT_SNAPSHOT_SECONDS = histogram(

@@ -25,8 +25,9 @@ collectives it owes zeros to from real rounds only.
 
 The shelf and the warm methods keep confirmed entries across a re-form of
 a world of the same shape (restored *warm*, servable after one digest
-round proves every member restored the same entries); the service side of
-that path comes with the port's elastic layer.
+round proves every member restored the same entries): the service
+shelves at a stop on purpose (``engine_service.DynamicService.stop``) and
+restores at its start in a re-formed world (``HVD_ELASTIC_WARM``).
 """
 
 from __future__ import annotations

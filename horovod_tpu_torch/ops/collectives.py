@@ -641,20 +641,26 @@ def _reduce_plan(tensors, pset, op, pre, post, compression, name,
     plan = dispatch_cache.lookup(key)
     if plan is None:
         plan = _build_reduce_plan(tensors, pset, op, pre, post, compression,
-                                  name)
+                                  name, key)
         dispatch_cache.store(key, plan)
     return plan
 
 
-def _build_reduce_plan(tensors, pset, op, pre, post, compression, name):
+def _build_reduce_plan(tensors, pset, op, pre, post, compression, name,
+                       key):
     """Resolve an allreduce signature once: the negotiation decision (a
-    service, or none pinned) and :class:`_Resolved`."""
+    service, or none pinned) and :class:`_Resolved`, which a re-formed
+    world of the same shape takes from its warm pool."""
     from .. import engine_service
     for t in tensors:
         _check_op_dtype(op, t.dtype)
     svc = engine_service.get_service(pset)
-    r = _Resolved(tensors, op, float(pre), float(post), compression,
-                  pset.size())
+    r = None
+    if dispatch_cache.enabled():
+        r = dispatch_cache.take_warm_stage(key)
+    if r is None:
+        r = _Resolved(tensors, op, float(pre), float(post), compression,
+                      pset.size())
     activity = "ALLREDUCE" if len(tensors) == 1 else "GROUPED_ALLREDUCE"
 
     def execute(ts):
@@ -676,7 +682,7 @@ def _build_reduce_plan(tensors, pset, op, pre, post, compression, name):
         name or activity.lower(), activity, r.nbytes,
         None if svc is None else svc, execute,
         variant="fused" if r.chunks is None else "chunked",
-        pieces=1 if r.chunks is None else len(r.chunks))
+        pieces=1 if r.chunks is None else len(r.chunks), stage=r)
 
 
 def _reduce_async(tensors, *, op: ReduceOp, prescale_factor: float,

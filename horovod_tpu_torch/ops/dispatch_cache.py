@@ -31,9 +31,17 @@ collective), ``flush`` (a fusion-cycle flush), ``step`` (a replayed
 captured step), ``gspmd`` (a replayed ``hvd.cached_step``,
 ``ops/gspmd_cache.py``).
 
-The JAX package shelves plans across an elastic re-form
-(``shelve_for_reform``/``restore_for_reform``); the port has no elastic
-re-form yet (ROADMAP A13b), and those two raise.
+An elastic re-form (``elastic/rendezvous.py``) shelves this world's
+restorable plans by the world's shape, (scope, size, rank), before the
+store is invalidated (:func:`shelve_for_reform`), and a later world of the
+same shape adopts them as its warm pool (:func:`restore_for_reform`, at
+the end of ``init()``). A warm plan is never served: a plan's negotiation
+decision and its executor are of the world it was built in. A build of
+the same key in the new world takes the warm plan's resolved ``stage``
+(:func:`take_warm_stage`: the AVERAGE lowering, dtypes and the fusion and
+chunk layouts) instead of resolving it again. Captured steps and cached
+whole steps hold CUDA Graphs with the old communicator's work: they never
+ride the shelf.
 """
 
 from __future__ import annotations
@@ -59,14 +67,15 @@ class DispatchPlan:
     collective a wire buffer), ``"chunked"`` (buffers past
     ``HVD_PIPELINE_THRESHOLD`` issued as ``pieces`` chunk collectives),
     ``"step"`` (a captured step's sync) or ``"gspmd"`` (a cached whole
-    step)."""
+    step). ``stage`` is the host-side resolution a re-formed world of the
+    same shape may take again (None: the plan is not restorable)."""
 
     __slots__ = ("label", "activity", "nbytes", "negotiate", "execute",
-                 "variant", "pieces")
+                 "variant", "pieces", "stage")
 
     def __init__(self, label: str, activity: str, nbytes: int | None,
                  negotiate: Callable | None, execute: Callable,
-                 variant: str = "fused", pieces: int = 1):
+                 variant: str = "fused", pieces: int = 1, stage=None):
         self.label = label
         self.activity = activity
         self.nbytes = nbytes
@@ -74,6 +83,7 @@ class DispatchPlan:
         self.execute = execute
         self.variant = variant
         self.pieces = pieces
+        self.stage = stage
 
     def run(self, arg):
         if self.negotiate is None:
@@ -92,6 +102,14 @@ _epoch: tuple | None = None
 
 _SOURCES = ("call", "flush", "step", "gspmd")
 _tls = threading.local()
+
+# The elastic shelf: shape -> {"plans": {key: plan}, "epoch": override
+# epoch}, least recently shelved first, and the warm pool of this world.
+# A churn cycle of a world of W keeps about 3W shapes live, so the cap
+# grows with the largest world shelved.
+_SHELF_SHAPES = 32
+_shelf: "OrderedDict[tuple, dict]" = OrderedDict()
+_warm_plans: dict = {}
 
 
 class dispatch_source:
@@ -237,27 +255,115 @@ def store(key: tuple, plan: DispatchPlan) -> None:
 
 def invalidate(reason: str | None = None) -> int:
     """Flush every cached plan (process-set removal, service reset,
-    shutdown). Returns the number of plans dropped."""
+    shutdown), and the warm pool: it held plans of the world that ends.
+    Returns the number of plans dropped."""
+    global _warm_plans
     del reason
     with _lock:
         n = len(_plans)
         _flush_locked(count_invalidation=True)
+        _warm_plans = {}
     return n
 
 
+def _shelf_cap() -> int:
+    """Caller holds ``_lock``; index 1 of a shape is its world size."""
+    worlds = [k[1] for k in _shelf if len(k) > 1 and isinstance(k[1], int)]
+    return max(_SHELF_SHAPES, 4 * max(worlds, default=0))
+
+
+def _current_shape() -> tuple | None:
+    """This process's world shape: (scope, size, rank)."""
+    from .. import runtime
+    if not runtime.is_initialized():
+        return None
+    return ("proc", runtime.size(), runtime.rank())
+
+
+def _restorable(key: tuple, plan) -> bool:
+    if plan is UNPLANNABLE or getattr(plan, "stage", None) is None:
+        return False
+    # index 4 of an eager key is the process-set key: "g", the global set
+    # 0 and rank tuples mean the same in every world; another registered
+    # id may name other ranks in a re-formed world, so its plans stay
+    # flushed
+    if len(key) > 4 and isinstance(key[4], int) \
+            and not isinstance(key[4], bool):
+        return key[4] == 0
+    return True
+
+
 def shelve_for_reform() -> int:
-    """The JAX package keeps plans across an elastic re-form here; the
-    port has no elastic re-form yet."""
-    raise NotImplementedError(
-        "dispatch-plan shelving across an elastic re-form waits for the "
-        "port's elastic re-form (ROADMAP A13b)")
+    """Move this world's restorable plans onto the shelf of its shape
+    (the re-form's teardown, before the store is invalidated); warm-pool
+    plans no build took ride along. Returns how many were shelved."""
+    global _warm_plans
+    if not envs.elastic_warm_enabled() or capacity() <= 0:
+        return 0
+    shape = _current_shape()
+    if shape is None:
+        return 0
+    epoch = envs.override_epoch()
+    with _lock:
+        keep = {k: p for k, p in _plans.items() if _restorable(k, p)}
+        for k in keep:
+            _plans.pop(k, None)
+        for k, p in _warm_plans.items():
+            keep.setdefault(k, p)
+        _warm_plans = {}
+        if not keep:
+            return 0
+        merged = _shelf.get(shape)
+        if merged is not None and merged["epoch"] == epoch:
+            merged["plans"].update(keep)
+        else:
+            _shelf[shape] = {"plans": keep, "epoch": epoch}
+        _shelf.move_to_end(shape)
+        cap = _shelf_cap()
+        while len(_shelf) > cap:
+            _shelf.popitem(last=False)
+    _conformance.record("ops/dispatch_cache.py::shelve_for_reform",
+                        "shelve", (shape, len(keep)))
+    return len(keep)
 
 
 def restore_for_reform() -> int:
-    """See :func:`shelve_for_reform`."""
-    raise NotImplementedError(
-        "dispatch-plan shelving across an elastic re-form waits for the "
-        "port's elastic re-form (ROADMAP A13b)")
+    """Adopt the shelf entry of this (re-formed) world's shape as the warm
+    pool (the end of ``init()``). Returns the pool's size: 0 where the
+    shape was never shelved, warm re-form is off, or a knob override
+    moved since (the stages baked the knobs of their time)."""
+    global _warm_plans
+    if not envs.elastic_warm_enabled() or capacity() <= 0:
+        return 0
+    shape = _current_shape()
+    if shape is None:
+        return 0
+    with _lock:
+        entry = _shelf.pop(shape, None)
+        if entry is None:
+            return 0
+        if entry["epoch"] != envs.override_epoch():
+            _metrics.DISPATCH_INVALIDATIONS.inc(len(entry["plans"]))
+            return 0
+        _warm_plans = entry["plans"]
+    _conformance.record("ops/dispatch_cache.py::restore_for_reform",
+                        "restore", (shape, len(entry["plans"])))
+    return len(entry["plans"])
+
+
+def take_warm_stage(key: tuple):
+    """The resolved stage of the warm plan of ``key``, taken out of the
+    pool, or None. A build of the same signature in a re-formed world
+    uses it instead of resolving it again."""
+    with _lock:
+        warm = _warm_plans.pop(key, None) if _warm_plans else None
+    if warm is None:
+        return None
+    _metrics.ELASTIC_WARM_REUSE.inc(labels={"kind": "plan"})
+    _conformance.record(
+        "ops/dispatch_cache.py::_warm_graft_locked", "graft",
+        (warm.variant, _zlib.crc32(repr(key).encode()) & 0xFFFFFFFF))
+    return warm.stage
 
 
 def note_negotiation_skip() -> None:
@@ -272,8 +378,13 @@ def stats() -> dict:
     by_source = {s: 0 for s in _SOURCES}
     for labelitems, v in _metrics.DISPATCH_HITS.series().items():
         by_source[dict(labelitems).get("source", "call")] = int(v)
+    warm_reuses = sum(
+        int(v) for labelitems, v in
+        _metrics.ELASTIC_WARM_REUSE.series().items()
+        if dict(labelitems).get("kind") in ("plan", "step"))
     with _lock:
         size = len(_plans)
+        warm_pool = len(_warm_plans)
     return {
         "enabled": enabled(),
         "capacity": capacity(),
@@ -288,8 +399,10 @@ def stats() -> dict:
         "chunked_builds": int(_metrics.DISPATCH_CHUNKED_BUILDS.value()),
         "step_builds": int(_metrics.DISPATCH_STEP_BUILDS.value()),
         "gspmd_builds": int(_metrics.DISPATCH_GSPMD_BUILDS.value()),
-        "warm_pool": 0,
-        "warm_reuses": 0,
+        # the elastic warm re-form: plans waiting in this world's warm
+        # pool, and stages taken from it
+        "warm_pool": warm_pool,
+        "warm_reuses": warm_reuses,
     }
 
 
@@ -305,9 +418,12 @@ def reset_stats() -> None:
 
 
 def reset() -> None:
-    """Tests / teardown: drop plans and counters."""
-    global _epoch
+    """Tests / teardown: drop plans, shelves, the warm pool and
+    counters."""
+    global _epoch, _warm_plans
     with _lock:
         _plans.clear()
         _epoch = None
+        _shelf.clear()
+        _warm_plans = {}
     reset_stats()

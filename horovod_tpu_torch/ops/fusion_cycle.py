@@ -1350,6 +1350,15 @@ def abort(reason: str) -> int:
     return 0
 
 
+def stop() -> None:
+    """Stop the scheduler's threads without issuing anything (a failed
+    world's teardown, after :func:`abort`); they start again at the next
+    enqueue."""
+    sched = _current_scheduler()
+    if sched is not None:
+        sched.stop()
+
+
 def stats() -> dict:
     """Scheduler counters (``hvd.fusion_stats()``)."""
     return scheduler().stats()

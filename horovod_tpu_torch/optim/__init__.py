@@ -60,6 +60,7 @@ import weakref
 
 import torch
 
+from .. import runtime
 from ..ops import collectives, fusion_cycle, gspmd_cache, step_capture
 from ..ops import sparse as sparse_ops
 from ..ops.compression import Compression, Compressor
@@ -144,6 +145,7 @@ class DistributedOptimizer:
         # (reducer, ranks) of every bucket; over a process set it is made
         # at the first bucket, since the optimizer may precede init()
         self._reducer = None
+        self._reducer_gen = None  # the runtime generation it was made in
         self._negotiate = mesh_spec is None  # the composed sync is traced
         if mesh_spec is not None:
             from ..parallel import mesh as composed
@@ -223,6 +225,17 @@ class DistributedOptimizer:
         self._next = 0  # the next bucket to start
         self._in_backward = 0
 
+    def abandon_pass(self) -> None:
+        """Forget the pass in flight: its gradients were not all reduced
+        (a peer died mid-step) and the elastic restore rolls the step
+        back, so the re-run's backward pass starts a fresh one. The
+        capture region the pass opened died with the aborted world."""
+        self._reset_pass()
+        self._region = None
+        self._synced = False
+        self._micro = 0
+        self._acc = {}
+
     def _landed(self, p) -> None:
         """Gradient hook: ``p.grad`` holds this pass's gradient. Starts every
         bucket that is complete and next in order; only on the pass that
@@ -269,9 +282,12 @@ class DistributedOptimizer:
             h.flush()  # the bucket trigger: issued now, in bucket order
             self._handles[b] = h
         else:
+            if self._negotiate and self._reducer_gen != runtime.generation():
+                self._reducer = None  # of a world that re-formed since
             if self._reducer is None:
                 self._reducer = (collectives._reducer(self._pset, self._op),
                                  self._pset.size())
+                self._reducer_gen = runtime.generation()
             reduce, size = self._reducer
             self._handles[b] = collectives._reduce_async(
                 grads, op=self._op, prescale_factor=self._pre,

@@ -149,11 +149,15 @@ class ProcessSetTable:
         if group not in (None, dist.GroupMember.NON_GROUP_MEMBER):
             self._destroy_group(group)
 
-    def clear(self) -> None:
-        """End every set's group (at ``shutdown()``)."""
+    def clear(self, end_groups: bool = True) -> None:
+        """End every set's group (at ``shutdown()``). ``end_groups=False``
+        only lets go of them: the caller aborts the whole world at once."""
         with self._lock:
             for ps in self._table.values():
-                self._end(ps)
+                if end_groups:
+                    self._end(ps)
+                else:
+                    ps._group = None
 
     def find(self, ranks: Sequence[int]) -> ProcessSet | None:
         with self._lock:

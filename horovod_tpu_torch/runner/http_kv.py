@@ -40,6 +40,7 @@ from urllib.parse import parse_qs, urlparse
 
 from .. import metrics as _metrics
 from ..utils import faults as _faults
+from ..utils import logging as hvd_logging
 from ..utils import retry as _retry
 
 SECRET_ENV = "HVD_SECRET_KEY"
@@ -153,10 +154,20 @@ class KVHandler(http.server.BaseHTTPRequestHandler):
         if not self._verify("PUT", payload):
             self._reply(403)
             return
+        key = self._key()
         with self.server.lock:
-            self.server.store[self._key()] = payload
-            self.server.times[self._key()] = time.monotonic()
+            self.server.store[key] = payload
+            self.server.times[key] = time.monotonic()
             self.server.lock.notify_all()  # wake the parked gathers
+        observer = self.server.on_put
+        if observer is not None:
+            try:
+                observer(key, payload)
+            except Exception:
+                # the store keeps working, but a driver that never learns
+                # of a worker's record looks like a hang: say so
+                hvd_logging.exception("KV PUT observer failed for key %r",
+                                      key)
         self._reply(200)
 
     def do_DELETE(self):
@@ -184,11 +195,15 @@ class _ThreadedHTTPServer(http.server.ThreadingHTTPServer):
 class KVServer:
     """In-memory scoped KV store served over HTTP (reference
     ``RendezvousServer``). :meth:`start` binds a port (0: the OS picks
-    one); share ``port`` and ``secret`` with the workers."""
+    one); share ``port`` and ``secret`` with the workers. ``on_put(key,
+    payload)``, where given, sees every PUT a worker makes (the elastic
+    driver's readiness, completion and failure records)."""
 
-    def __init__(self, secret: str | None = None, host: str = "0.0.0.0"):
+    def __init__(self, secret: str | None = None, host: str = "0.0.0.0",
+                 on_put=None):
         self.secret = secret
         self.host = host
+        self.on_put = on_put
         self._httpd: _ThreadedHTTPServer | None = None
         self._thread: threading.Thread | None = None
 
@@ -197,6 +212,7 @@ class KVServer:
         httpd.store, httpd.times = {}, {}
         httpd.lock = threading.Condition()
         httpd.secret = self.secret
+        httpd.on_put = self.on_put
         self._httpd = httpd
         self._thread = threading.Thread(
             target=httpd.serve_forever, daemon=True, name="hvd-kv-server")
@@ -341,3 +357,27 @@ class KVClient:
             times = {k: struct.unpack_from("<d", data, pos + 8 * i)[0]
                      for i, k in enumerate(keys)}
             return out, times
+
+
+def local_addresses() -> list[str]:
+    """This host's IPv4 addresses, routable ones first and ``127.0.0.1``
+    last: from the interfaces where ``psutil`` is installed, else the
+    address the host's own name resolves to. Nothing is sent anywhere."""
+    addrs: list[str] = []
+    try:
+        import psutil
+        for nics in psutil.net_if_addrs().values():
+            for a in nics:
+                if a.family == socket.AF_INET and \
+                        not a.address.startswith("127."):
+                    addrs.append(a.address)
+    except ImportError:
+        pass
+    try:
+        own = socket.gethostbyname(socket.gethostname())
+        if not own.startswith("127.") and own not in addrs:
+            addrs.append(own)
+    except OSError:
+        pass
+    addrs.append("127.0.0.1")
+    return addrs

@@ -30,6 +30,30 @@ DYNAMIC_ENGINE = "DYNAMIC_ENGINE"  # 0 disables multi-process negotiation
 KV_ADDR = "KV_ADDR"  # the launcher's KV server (runner/http_kv.py)
 KV_PORT = "KV_PORT"
 SECRET_KEY = "SECRET_KEY"  # the job's HMAC secret of KV messages
+# The launcher's worker contract (runner/launch.py worker_env), the JAX
+# package's names; torch.distributed's RANK, WORLD_SIZE, LOCAL_RANK,
+# LOCAL_WORLD_SIZE, MASTER_ADDR and MASTER_PORT go beside them
+RANK = "RANK"
+SIZE = "SIZE"
+LOCAL_RANK = "LOCAL_RANK"
+LOCAL_SIZE = "LOCAL_SIZE"
+CROSS_RANK = "CROSS_RANK"
+CROSS_SIZE = "CROSS_SIZE"
+COORDINATOR_ADDR = "COORDINATOR_ADDR"  # rank 0's host: MASTER_ADDR
+COORDINATOR_PORT = "COORDINATOR_PORT"  # its TCPStore port: MASTER_PORT
+NUM_PROCESSES = "NUM_PROCESSES"
+PROCESS_ID = "PROCESS_ID"
+HOSTNAME = "HOSTNAME"  # the launcher's name of this worker's host
+# The port's own: the card this worker drives, an index among the visible
+# ones, from the launcher's per-machine pool (runtime.init reads it before
+# LOCAL_RANK, so two aliases of one machine never share a card)
+CUDA_DEVICE = "CUDA_DEVICE"
+START_TIMEOUT = "START_TIMEOUT"  # s a run() worker waits for its function
+ELASTIC = "ELASTIC"  # "1" in workers launched by an elastic driver
+ELASTIC_ROUND = "ELASTIC_ROUND"  # the round a worker runs in
+ELASTIC_TIMEOUT = "ELASTIC_TIMEOUT"  # s to wait for slots or a next round
+ELASTIC_GRACE = "ELASTIC_GRACE"  # s a slot-removed worker gets to exit (0: kill)
+ELASTIC_WARM = "ELASTIC_WARM"  # auto|1|0: plans and cache entries survive a re-form
 STALL_CHECK_DISABLE = "STALL_CHECK_DISABLE"
 STALL_CHECK_TIME_SECONDS = "STALL_CHECK_TIME_SECONDS"  # warn after (60 s)
 STALL_SHUTDOWN_TIME_SECONDS = "STALL_SHUTDOWN_TIME_SECONDS"  # 0: never
@@ -151,6 +175,43 @@ def get(name: str, default: str | None = None) -> str | None:
             return val
     val = _overrides.get(name)
     return default if val is None else val
+
+
+def require(name: str) -> str:
+    """Knob ``name`` as :func:`get` reads it, raising where it is absent:
+    for the launcher's worker contract, where a missing variable means the
+    process was not started by a launcher."""
+    val = get(name)
+    if val is None:
+        raise RuntimeError(
+            f"required environment variable HVD_{name} is not set (workers "
+            "are started by python -m horovod_tpu_torch.runner.launch)")
+    return val
+
+
+def set_env(name: str, value, *, only_if_unset: bool = False) -> None:
+    """Write knob ``name`` into the process environment as ``HVD_<name>``;
+    ``only_if_unset`` keeps a value already set under either prefix."""
+    if only_if_unset and any(os.environ.get(p + name) is not None
+                             for p in _PREFIXES):
+        return
+    os.environ["HVD_" + name] = str(value)
+
+
+def elastic_warm_enabled() -> bool:
+    """``HVD_ELASTIC_WARM``: whether dispatch plans and coordinator cache
+    entries are shelved at a re-form and restored at the next re-form to
+    the same shape. ``auto`` (the default) is on in the workers of an
+    elastic job (``HVD_ELASTIC=1``): a worker of the port re-forms in its
+    own process, whose host-side state stays valid. Elsewhere nothing
+    re-forms, and a process that starts one world after another (tests)
+    keeps them apart."""
+    val = (get(ELASTIC_WARM, "auto") or "auto").strip().lower()
+    if val in ("1", "true", "yes", "on"):
+        return True
+    if val in ("0", "false", "no", "off"):
+        return False
+    return get_bool(ELASTIC)
 
 
 def get_bool(name: str, default: bool = False) -> bool:

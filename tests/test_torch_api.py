@@ -40,6 +40,26 @@ def test_all_lists_are_equal_up_to_the_intended_omissions():
         assert hasattr(thvd, name), name
 
 
+# names of horovod_tpu.elastic the port leaves out until the autoscale
+# policy is ported (ROADMAP A14b), and TorchState in place of JaxState
+ELASTIC_OMISSIONS = {"AutoscalePolicy", "PolicyEvalError", "JaxState"}
+ELASTIC_PORT_ONLY = {"TorchState", "ElasticSampler", "NOTIFY_KEY"}
+
+
+def test_elastic_and_runner_lists_equal_jax_up_to_the_omissions():
+    import horovod_tpu.elastic as jel
+    import horovod_tpu.runner as jrunner
+    import horovod_tpu_torch.elastic as tel
+    import horovod_tpu_torch.runner as trunner
+    assert set(jel.__all__) - set(tel.__all__) == ELASTIC_OMISSIONS
+    assert set(tel.__all__) - set(jel.__all__) == ELASTIC_PORT_ONLY
+    assert sorted(trunner.__all__) == sorted(jrunner.__all__)
+    for mod in (tel, trunner):
+        for name in mod.__all__:
+            assert hasattr(mod, name), name
+    assert thvd.elastic is tel
+
+
 def test_module_names_have_the_intended_omissions():
     """``models.transformer.param_shardings`` and
     ``parallel.mesh.layout_signature`` shard and key JAX programs."""

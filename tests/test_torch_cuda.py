@@ -9,12 +9,22 @@ PyTorch is installed:
         tests/test_torch_cuda.py
 """
 
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from horovod_tpu_torch.ops import flash
 from horovod_tpu_torch.parallel import sequence
+
+REPO = Path(__file__).resolve().parent.parent
+LAUNCH = [sys.executable, "-m", "horovod_tpu_torch.runner.launch"]
 
 
 @pytest.fixture
@@ -1554,3 +1564,199 @@ def test_cuda_nccl_world4_peer_restore_bitwise(four_cards, tmp_path):
         np.testing.assert_array_equal(res["params"], ranks[0]["params"])
         np.testing.assert_array_equal(res["moments"], ranks[0]["moments"])
     assert [int(res["pulled"]) for res in ranks] == [0, 0, 0, 3]
+
+
+# --------------------------------------------------------------------------
+# The launcher and elastic training on cards
+# --------------------------------------------------------------------------
+
+def _launch(argv: list, tmp_path, env=None, timeout=900):
+    """``python -m horovod_tpu_torch.runner.launch *argv`` with NCCL's
+    flight recorder dumping under ``tmp_path`` and every rank's stacks on
+    a hang; its output is printed and returned (stdout, stderr)."""
+    full = {**os.environ, "PYTHONFAULTHANDLER": "1",
+            "TORCH_NCCL_TRACE_BUFFER_SIZE": "2000",
+            "TORCH_FR_BUFFER_SIZE": "2000", "TORCH_NCCL_DUMP_ON_TIMEOUT": "1",
+            "TORCH_NCCL_DEBUG_INFO_TEMP_FILE": str(tmp_path / "nccl_trace_"),
+            "TORCH_FR_DUMP_TEMP_FILE": str(tmp_path / "nccl_trace_"),
+            **(env or {})}
+    proc = subprocess.run(LAUNCH + argv, capture_output=True, text=True,
+                          timeout=timeout, env=full, cwd=REPO)
+    dumps = sorted(p.name for p in tmp_path.glob("nccl_trace_*"))
+    assert proc.returncode == 0, (
+        f"exit {proc.returncode}; flight-recorder dumps {dumps}\n"
+        + proc.stdout[-20000:] + proc.stderr[-20000:])
+    return proc.stdout, proc.stderr
+
+
+@pytest.mark.cuda
+def test_cuda_elastic_world1_reforms_in_place(cuda_device):
+    """chip_smoke.py's ``[elastic]`` phase: the cached trainer at full
+    width under ``hvd.elastic.run`` through the elastic launcher at
+    ``--min-np 1 --max-np 1``; a new round that keeps the slot re-forms
+    the world in the worker's own process (a new NCCL group on the same
+    card, the cached step recorded again) and the run stays bitwise the
+    uninterrupted one."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    out, launches = chip_smoke.phase_elastic(torch.device("cuda", 0))
+    print(json.dumps(out["reform_s"]), launches)
+    assert out["bitwise"] and out["gspmd"]["events"]["recorded"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_launch_static_trainer(four_cards, tmp_path):
+    """``python -m horovod_tpu_torch.runner.launch -np 4`` of the trainer
+    (chip_smoke.py's ``[launch]`` worker, full width, NCCL): one card a
+    worker from the launcher's pool, and every rank's losses and
+    parameters bitwise rank 0's."""
+    _launch(["-np", "4", "--", sys.executable, str(REPO / "chip_smoke.py"),
+             "--trainer-worker", str(tmp_path / "rank{rank}.json")],
+            tmp_path)
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text())
+             for r in range(4)]
+    assert sorted(r["env"]["HVD_CUDA_DEVICE"] for r in ranks) == \
+        ["0", "1", "2", "3"]
+    assert sorted(r["device"] for r in ranks) == [f"cuda:{i}"
+                                                  for i in range(4)]
+    for r in ranks:
+        assert (r["world"], r["backend"]) == (4, "nccl")
+        assert r["losses"] == ranks[0]["losses"]
+        assert r["params_sha256"] == ranks[0]["params_sha256"]
+        assert set(r["launches"].values()) == {r["layers"] * 5}
+    assert ranks[0]["losses"][-1] < ranks[0]["losses"][0]
+    print(f"four-card launch: losses {ranks[0]['losses']}")
+
+
+ELASTIC_CARD_STEPS = 12
+
+
+def _card_elastic_rank(out_dir: str) -> None:
+    """An elastic worker of :func:`test_cuda_nccl_world4_elastic_remove_
+    and_add`: the trainer at full width (2 x 2048 tokens a rank, its
+    rank's own data) with ``TorchState``, committing every step; it logs
+    each (re-)entry into training and each commit (its save, also where an
+    interrupt then ends the commit) with a digest of its parameters."""
+    import hashlib
+    from horovod_tpu_torch import elastic
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import (TransformerConfig, TransformerLM,
+                                          lm_loss)
+
+    hvd.init()
+    dev = hvd.device()
+    cfg = TransformerConfig(attn_mode="ulysses")
+    model = TransformerLM(cfg, device=dev)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-3))
+    state = elastic.TorchState(model=model, optimizer=opt, step=0)
+    log = open(os.path.join(out_dir, f"worker{os.getpid()}.jsonl"), "a")
+
+    def record(kind):
+        h = hashlib.sha256()
+        for p in model.parameters():
+            h.update(p.detach().contiguous().view(torch.uint8).cpu()
+                     .numpy().tobytes())
+        log.write(json.dumps({
+            "kind": kind, "round": int(os.environ["HVD_ELASTIC_ROUND"]),
+            "rank": hvd.rank(), "size": hvd.size(), "step": state.step,
+            "card": str(hvd.device()), "sha": h.hexdigest(),
+            "t": time.time()}) + "\n")
+        log.flush()
+
+    save = state.save
+
+    def recorded_save():  # every commit, also one an interrupt ends
+        save()
+        record("commit")
+
+    state.save = recorded_save
+
+    @elastic.run
+    def train(state):
+        record("entered")
+        while state.step < ELASTIC_CARD_STEPS:
+            rng = np.random.default_rng(1000 * state.step + hvd.rank())
+            tokens = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, size=(2, 2048))).to(dev)
+            opt.zero_grad()
+            lm_loss(model(tokens), tokens).backward()
+            opt.step()
+            state.step += 1
+            state.commit()
+
+    train(state)
+    record("done")
+    hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_elastic_remove_and_add(four_cards, tmp_path):
+    """An elastic job over two aliases of this machine, two slots each
+    (``-H localhost:2,127.0.0.1:2``): ``worker:remove`` takes
+    ``127.0.0.1``'s two workers abruptly (4 -> 2: the survivors abort
+    NCCL, restore the last commit and lose at most one step), and
+    ``worker:add`` brings the host back (2 -> 4: the newcomers take the
+    state by peer restore). After each re-form every rank's parameters are
+    bitwise rank 0's and the last commit's; no two workers share a card."""
+    _launch(["-np", "4", "--min-np", "2", "--max-np", "4", "-H",
+             "localhost:2,127.0.0.1:2", "--", sys.executable,
+             str(Path(__file__).resolve()), "--elastic-rank",
+             str(tmp_path)], tmp_path, env={
+                 "HVD_FAULT_SPEC": "worker:remove:rank=2:at_step=3;"
+                                   "worker:add:rank=0:at_round=2:after=1",
+                 "HVD_PROCESS_GROUP_TIMEOUT": "30",
+                 "HVD_HEALTH_INTERVAL": "0.5", "HVD_HEALTH_TIMEOUT": "5",
+                 "HVD_ELASTIC_TIMEOUT": "300"})
+    recs = [json.loads(line) for f in sorted(tmp_path.glob("worker*.jsonl"))
+            for line in f.read_text().splitlines()]
+    commits = {(r["round"], r["step"]): r["sha"] for r in recs
+               if r["kind"] == "commit" and r["rank"] == 0}
+    rounds = sorted({r["round"] for r in recs})
+    sizes = {rnd: {r["size"] for r in recs if r["round"] == rnd}
+             for rnd in rounds}
+    print(f"rounds {rounds}, sizes {sizes}")
+    assert rounds == [1, 2, 3] and sizes == {1: {4}, 2: {2}, 3: {4}}
+    for rnd in (2, 3):
+        entered = [r for r in recs if r["kind"] == "entered"
+                   and r["round"] == rnd]
+        assert sorted(r["rank"] for r in entered) == list(range(
+            sizes[rnd].pop()))
+        assert len({r["sha"] for r in entered}) == 1, entered
+        assert len({r["card"] for r in entered}) == len(entered)
+        step = entered[0]["step"]
+        last = max(s for (rd, s) in commits if rd == rnd - 1)
+        assert step == last, (rnd, step, last)
+        assert entered[0]["sha"] == commits[(rnd - 1, last)]
+        # the re-form's time: the old round's last commit to the last rank
+        # of the new round back in training
+        took = max(r["t"] for r in entered) - max(
+            r["t"] for r in recs if r["kind"] == "commit"
+            and r["round"] == rnd - 1)
+        print(f"round {rnd}: {len(entered)} ranks entered at step {step}, "
+              f"bitwise the last commit, {took:.1f} s after it")
+    done = [r for r in recs if r["kind"] == "done"]
+    assert len(done) == 4 and len({r["sha"] for r in done}) == 1
+    assert {r["step"] for r in done} == {ELASTIC_CARD_STEPS}
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_launch_long_context_twin_ulysses(four_cards,
+                                                           tmp_path):
+    """ROADMAP C3 through the launcher: the Ulysses long-context twin at
+    ``-np 4``, 65536 tokens (16384 a rank) at full width for 3 steps, with
+    every rank's stacks on a hang and NCCL's flight recorder dumping under
+    ``tmp_path`` on a collective's timeout."""
+    out, _ = _launch(["-np", "4", "--", sys.executable, "-m",
+                      "horovod_tpu_torch.examples.long_context_lm",
+                      "--model", "full", "--attn", "ulysses", "--seq-len",
+                      "65536", "--batch", "1", "--steps", "3"], tmp_path,
+                     env={"HVD_PROCESS_GROUP_TIMEOUT": "120"})
+    assert "OK" in out
+    print([line for line in out.splitlines() if "[0]<stdout>" in line][-3:])
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "--elastic-rank":
+        _card_elastic_rank(sys.argv[2])

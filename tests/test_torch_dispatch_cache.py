@@ -158,11 +158,41 @@ def test_stats_keys_are_jax_keys(hvd):
         jdc.stats()["hits_by_source"])
 
 
-def test_reform_shelving_waits_for_elastic():
-    with pytest.raises(NotImplementedError, match="A13"):
-        tdc.shelve_for_reform()
-    with pytest.raises(NotImplementedError, match="A13"):
-        tdc.restore_for_reform()
+def test_reform_shelving_waits_for_elastic(hvd, monkeypatch):
+    """The elastic re-form's shelf, which raised until the port had its
+    elastic layer, against the JAX package's on the same script: plans
+    shelved, the warm pool restored, the stages grafted at the rebuild,
+    and what a knob-override epoch move and a registered process set's
+    plan do to them."""
+    monkeypatch.setenv("HVD_ELASTIC_WARM", "1")
+    sides = ((hvd, jdc, jnp.asarray, jenvs), (thvd, tdc, torch.tensor,
+                                                tenvs))
+    out = []
+    for h, dc, to, envs in sides:
+        trace = []
+        for name in ("a", "b"):
+            h.allreduce(to([1.0, 2.0]), op=h.Sum, name=name)
+        h.grouped_allreduce([to([1.0]), to([2.0, 3.0])], op=h.Average,
+                            name="g")
+        trace.append(dc.shelve_for_reform())
+        trace.append(dc.restore_for_reform())
+        trace.append(dc.stats()["warm_pool"])
+        h.allreduce(to([1.0, 2.0]), op=h.Sum, name="a")
+        trace.append((dc.stats()["warm_pool"], dc.stats()["warm_reuses"]))
+        trace.append(dc.shelve_for_reform())  # b and g ride along
+        envs.set_override("FUSION_THRESHOLD", 1 << 20)  # the epoch moves
+        try:
+            trace.append(dc.restore_for_reform())
+        finally:
+            envs.clear_override("FUSION_THRESHOLD")
+        trace.append(dc.restore_for_reform())  # the entry went: nothing
+        monkeypatch.setenv("HVD_ELASTIC_WARM", "0")
+        h.allreduce(to([1.0]), op=h.Sum, name="c")
+        trace.append(dc.shelve_for_reform())
+        monkeypatch.setenv("HVD_ELASTIC_WARM", "1")
+        out.append(trace)
+    assert out[1] == out[0]
+    assert out[1][:4] == [3, 3, 3, (2, 1)]
 
 
 def test_fold_knobs_and_drop_match_jax():

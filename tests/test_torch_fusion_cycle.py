@@ -26,7 +26,8 @@ from horovod_tpu.ops import fusion_cycle as jfc
 from horovod_tpu_torch.ops import dispatch_cache as tdc
 from horovod_tpu_torch.ops import fusion_cycle as tfc
 
-LONG_CYCLE_MS = "2000"  # the timer never fires unless a test asks
+LONG_CYCLE_MS = "3600000"  # an hour: no test outlasts it, so the timer
+# fires only where a test sets its own cycle time
 
 
 @pytest.fixture(scope="module")

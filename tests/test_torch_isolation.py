@@ -52,6 +52,64 @@ SLICE9 = ["utils/envs.py", "exceptions.py", "metrics.py", "utils/faults.py",
           "__init__.py"]
 
 
+# The modules of the launcher and elastic slice.
+SLICE12 = ["runner/__init__.py", "runner/hosts.py", "runner/config_parser.py",
+           "runner/safe_exec.py", "runner/lsf.py", "runner/launch.py",
+           "runner/task_exec.py", "runner/http_kv.py", "runtime.py",
+           "elastic/__init__.py", "elastic/discovery.py",
+           "elastic/registration.py", "elastic/driver.py",
+           "elastic/rendezvous.py", "elastic/bootstrap.py",
+           "elastic/launch.py", "elastic/notification.py",
+           "elastic/state.py", "health.py", "utils/faults.py",
+           "engine_service.py", "ops/dispatch_cache.py",
+           "examples/elastic_train.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE12)
+def test_slice12_module_is_a_port_file(rel):
+    path = REPO / "horovod_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+
+
+def test_slice12_import_starts_nothing_and_leaves_jax_out(tmp_path):
+    """Importing the launcher and the elastic modules imports no JAX,
+    starts no thread or process, opens no server and writes no file; the
+    launcher's module runs as ``python -m`` once (the package imports it
+    lazily)."""
+    code = ("import sys, threading, horovod_tpu_torch, "
+            "horovod_tpu_torch.runner, horovod_tpu_torch.runner.hosts, "
+            "horovod_tpu_torch.runner.config_parser, "
+            "horovod_tpu_torch.runner.safe_exec, "
+            "horovod_tpu_torch.runner.lsf, "
+            "horovod_tpu_torch.runner.task_exec, "
+            "horovod_tpu_torch.elastic.discovery, "
+            "horovod_tpu_torch.elastic.registration, "
+            "horovod_tpu_torch.elastic.driver, "
+            "horovod_tpu_torch.elastic.rendezvous, "
+            "horovod_tpu_torch.elastic.bootstrap, "
+            "horovod_tpu_torch.examples.elastic_train; "
+            "lazy = 'horovod_tpu_torch.runner.launch' not in sys.modules; "
+            "import horovod_tpu_torch.elastic.launch; "
+            "bad = sorted(x for x in sys.modules if x.split('.')[0] in "
+            f"{FORBIDDEN!r}); "
+            "extra = [th.name for th in threading.enumerate() "
+            "if th is not threading.main_thread()]; "
+            "print(bad, extra, lazy); "
+            "sys.exit(1 if bad or extra or not lazy else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert list(tmp_path.iterdir()) == []
+    res = subprocess.run(
+        [sys.executable, "-W", "error::RuntimeWarning", "-m",
+         "horovod_tpu_torch.runner.launch", "--version"], cwd=tmp_path,
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 @pytest.mark.parametrize("rel", SLICE9)
 def test_slice9_module_is_a_port_file(rel):
     path = REPO / "horovod_tpu_torch" / rel

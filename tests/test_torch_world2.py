@@ -20,7 +20,6 @@ side needs JAX (``test_torch_sync_bn.py``, ``test_torch_training_utils.py``):
 import os
 import shutil
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
@@ -351,9 +350,11 @@ def _hang_rank_on_card(out_path: str, alone_s: float = 60.0) -> None:
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """The launcher's choice of rank 0's port: below the kernel's
+    ephemeral range, so that no concurrent test's outgoing connection
+    takes it before rank 0 listens."""
+    from horovod_tpu_torch.runner.launch import _free_port as free_port
+    return free_port()
 
 
 # A collective that waits on its peers this long is declared hung: well
@@ -394,8 +395,9 @@ def spawn_world(argv_of, size: int, env: dict | None = None,
                 timeout_s: float = TIMEOUT_S,
                 exit_codes: dict | None = None) -> list:
     """Run the command ``argv_of(rank)`` in each rank of one world of
-    ``size`` processes, with the environment a launcher sets (a free local
-    port, ``LOCAL_RANK`` = rank; ``env`` adds to it, e.g. a
+    ``size`` processes, with the environment the launcher sets
+    (``runner.launch.worker_env`` of a one-host job: a free local port,
+    ``LOCAL_RANK`` = rank; ``env`` adds to it, e.g. a
     ``LOCAL_WORLD_SIZE`` of two nodes); returns each rank's output, after
     checking that every rank exited 0. A collective waiting longer than
     ``PG_TIMEOUT_S`` fails its rank, and over NCCL dumps the rank's flight
@@ -408,25 +410,33 @@ def spawn_world(argv_of, size: int, env: dict | None = None,
     ``HVD_SECRET_KEY``, as a launcher sets them. ``timeout_s`` bounds the
     whole world's run; ``exit_codes`` names ranks expected to exit with
     another code than 0 (a rank a test crashes on purpose)."""
+    from horovod_tpu_torch.runner import hosts, launch
+    from horovod_tpu_torch.runner.http_kv import KVServer, make_secret
     port = _free_port()
     server = None
-    kv_env = {}
+    kv_port, secret = 0, ""
     if kv:
-        from horovod_tpu_torch.runner.http_kv import KVServer, make_secret
         server = KVServer(secret=make_secret(), host="127.0.0.1")
-        kv_env = {"HVD_KV_ADDR": "127.0.0.1",
-                  "HVD_KV_PORT": str(server.start()),
-                  "HVD_SECRET_KEY": server.secret}
+        kv_port, secret = server.start(), server.secret
+    slots = hosts.get_host_assignments([hosts.HostSpec("localhost", size)],
+                                       size)
     own_dir = trace_dir is None
     if own_dir:
         trace_dir = Path(tempfile.mkdtemp(prefix="nccl_trace_"))
     trace_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for rank in range(size):
-        rank_env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(size),
-                        LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(size),
-                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                        PYTHONFAULTHANDLER="1",
+        # the launcher's worker contract (RANK, WORLD_SIZE, LOCAL_RANK,
+        # LOCAL_WORLD_SIZE, MASTER_ADDR/PORT and the HVD_* set); without
+        # kv, no KV store: the world runs without the negotiation service
+        contract = launch.worker_env(
+            slots[rank], coordinator_addr="127.0.0.1", coordinator_port=port,
+            kv_addr="127.0.0.1", kv_port=kv_port, secret=secret)
+        if not kv:
+            for name in ("HVD_KV_ADDR", "HVD_KV_PORT", "HVD_SECRET_KEY"):
+                del contract[name]
+        rank_env = {**os.environ, **contract}
+        rank_env.update(PYTHONFAULTHANDLER="1",
                         HVD_PROCESS_GROUP_TIMEOUT=str(PG_TIMEOUT_S),
                         # the flight recorder, under the names of torch
                         # 2.11 and of later versions (TORCH_FR_*)
@@ -440,7 +450,6 @@ def spawn_world(argv_of, size: int, env: dict | None = None,
                         PYTHONPATH=os.pathsep.join(
                             [str(REPO), str(REPO / "tests"),
                              os.environ.get("PYTHONPATH", "")]))
-        rank_env.update(kv_env)
         rank_env.update(env or {})
         procs.append(subprocess.Popen(
             argv_of(rank), env=rank_env, cwd=REPO, stdout=subprocess.PIPE,
