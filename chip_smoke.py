@@ -126,6 +126,26 @@ Phases, each of which exits non-zero on failure:
    cached step recorded again: 2 records); its losses and parameters must
    be bitwise those of the same run uninterrupted; the re-form's time,
    interrupt to training and to the new round's first step's end;
+7i. autoscale: the same worker uninterrupted through the elastic launcher
+   at ``--min-np 1 --max-np 1`` with ``HVD_AUTOSCALE=1`` and an SLO below
+   its step time (this process runs the driver and the policy, with one
+   ``policy.eval`` fault): sensor blobs of the job's round, the breach
+   streak past its windows and no membership decision (the ceiling), the
+   fault a counted hold, the observer's mean step time within
+   ``OBSERVER_AGREEMENT`` of the worker's own, losses and parameters
+   bitwise 7h's uninterrupted run; the observer's cost a commit, on
+   against off in turns;
+7j. ray: over ``testing.make_process_ray`` (an actor is a child process),
+   ``RayExecutor(num_workers=1)`` of the trainer, bitwise 7g's direct run
+   with ``num_layers x STEPS`` launches, and ``ElasticRayExecutor`` of
+   7h's worker uninterrupted, bitwise its reference; start-up against
+   7g's;
+7k. spark: over ``testing.make_process_pyspark`` (a barrier task is a
+   child process), ``spark.run(num_proc=1)`` of the trainer, bitwise 7g's
+   direct run; ``spark.fit`` of the full-width TransformerLM from seeded
+   tokens with a Store: 2 epochs, a rerun that runs 0 epochs to the same
+   parameters, 3 epochs resumed from the Store bitwise 3 from scratch; the
+   per-epoch checkpoint's size and its save and load times;
 8. pipeline: the pipeline twin (``examples/pipeline_train.py --model
    full``: vocab 32000, d_model 512, hidden 2048, 4 residual-MLP blocks, 8
    x 2048 tokens, bf16) at pp 1 with 4 microbatches for 5 steps: the loss
@@ -173,10 +193,12 @@ with the per-step count of buckets started during the backward pass), a
 ``{"moe": ..., "pipeline": ...}`` one, one ``{"kernels": [...]}`` JSON
 object (each kernel's launches on the trainer's, the k=2 run's, the
 Adasum run's, the negotiation phase's, the fusion phase's, the cached
-step's, the launched trainer's, the re-formed trainer's and the MoE
-run's main path), preceded by ``{"adasum": ...}``,
-``{"negotiation": ...}``, ``{"fusion": ...}``, ``{"cached_step": ...,
-"checkpoint": ...}`` and ``{"launch": ..., "elastic": ...}``,
+step's, the launched trainer's, the re-formed trainer's, the autoscaled
+trainer's, the Ray and Spark trainers' and the MoE run's main path),
+preceded by ``{"adasum": ...}``, ``{"negotiation": ...}``,
+``{"fusion": ...}``, ``{"cached_step": ..., "checkpoint": ...}``,
+``{"launch": ..., "elastic": ...}`` and ``{"autoscale": ..., "ray": ...,
+"spark": ...}``,
 the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -193,6 +215,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2031,9 +2054,11 @@ def trainer_worker(out_path: str) -> None:
            "t_done": time.time(), "world": hvd.size(), "rank": hvd.rank(),
            "device": str(dev), "backend": dist.get_backend(),
            "params_sha256": _params_sha256(model),
+           "card_uuid": str(getattr(torch.cuda.get_device_properties(dev),
+                                    "uuid", None)),
            "env": {k: os.environ.get(k) for k in (
                "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_PORT",
-               "HVD_CUDA_DEVICE", "HVD_KV_ADDR")}}
+               "HVD_CUDA_DEVICE", "HVD_KV_ADDR", "CUDA_VISIBLE_DEVICES")}}
     hvd.shutdown()
     with open(out_path.format(rank=out["rank"]), "w") as f:
         json.dump(out, f)
@@ -2047,10 +2072,13 @@ def elastic_worker(out_path: str, mode: str) -> None:
     ELASTIC_REFORM_AT it asks the driver for a new round over the KV
     store and waits for the notification, so the next commit raises
     ``HostsUpdatedInterrupt`` and the world re-forms in this process; with
-    ``reference`` it runs the same commits without a launcher and
-    uninterrupted. Writes the losses, a digest of the parameters, the
-    cached step's records, the process groups seen, the re-form's times
-    and the kernel launches to ``out_path``."""
+    ``reference`` it runs the same commits uninterrupted (without a
+    launcher, or under ``ElasticRayExecutor``); ``autoscale`` runs them
+    uninterrupted under the elastic launcher with ``HVD_AUTOSCALE`` on, and
+    adds the observer's step times and its cost a commit. Writes the
+    losses, a digest of the parameters, the cached step's records, the
+    process groups seen, the re-form's times and the kernel launches to
+    ``out_path``."""
     import torch.distributed as dist
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import metrics, runtime
@@ -2084,6 +2112,26 @@ def elastic_worker(out_path: str, mode: str) -> None:
         return got
 
     gspmd_cache.CachedStep._capture = counted_capture
+    note_cost = {"on": [], "off": []}
+    iteration_s = []
+    if mode == "autoscale":
+        # the observer's cost a commit, in turns: the commit's own call
+        # (observer on), then the same seam with the observer off
+        from horovod_tpu_torch.elastic import policy
+        note_commit = policy.note_commit
+
+        def timed_note_commit():
+            t0 = time.perf_counter()
+            note_commit()
+            t1 = time.perf_counter()
+            obs, policy._process_observer = policy._process_observer, False
+            note_commit()
+            t2 = time.perf_counter()
+            policy._process_observer = obs
+            note_cost["on"].append(t1 - t0)
+            note_cost["off"].append(t2 - t1)
+
+        policy.note_commit = timed_note_commit
     gspmd_cache.reset_stats()
     dispatch_cache.reset_stats()
     flash.reset_launch_counts()
@@ -2099,6 +2147,7 @@ def elastic_worker(out_path: str, mode: str) -> None:
         if info["interrupt_t"] is not None:
             info["entered_t"] = time.perf_counter()
         while state.step < ELASTIC_STEPS:
+            t_iter = time.perf_counter()
             loss = hvd.cached_step(make_step())(tokens)
             state.losses = state.losses + [loss.item()]
             if info["interrupt_t"] is not None \
@@ -2107,6 +2156,7 @@ def elastic_worker(out_path: str, mode: str) -> None:
                 info["first_step_end_t"] = time.perf_counter()
             state.step += 1
             state.commit()
+            iteration_s.append(time.perf_counter() - t_iter)
             if mode == "elastic" and state.step == ELASTIC_REFORM_AT \
                     and info["interrupt_t"] is None:
                 from horovod_tpu_torch.elastic.rendezvous import (
@@ -2133,7 +2183,16 @@ def elastic_worker(out_path: str, mode: str) -> None:
            "dispatch_invalidations":
                dispatch_cache.stats()["invalidations"],
            "worlds": info["worlds"], "events": events,
-           "launches_eager": eager, "recorded_at_capture": captures}
+           "launches_eager": eager, "recorded_at_capture": captures,
+           "iteration_s": iteration_s}
+    if mode == "autoscale":
+        steps = list(metrics.ELASTIC_STEP_SECONDS.series().values())
+        out["observer"] = {
+            "steps": sum(h.count for h in steps),
+            "step_s_mean": (sum(h.sum for h in steps)
+                            / max(1, sum(h.count for h in steps))),
+            "slo_violations": metrics.ELASTIC_SLO_VIOLATIONS.value(),
+            "note_cost_s": note_cost}
     if info["interrupt_t"] is not None:
         out["reform_s"] = {
             "interrupt_to_training": info["entered_t"] - info["interrupt_t"],
@@ -2212,7 +2271,9 @@ def phase_launch(dev) -> tuple[dict, dict]:
             and launched["launches"] == direct["launches"],
             f"launch: K1-K3 launches {launched['launches']}, want {want}")
     return {"losses": launched["losses"], "startup": startup,
-            "bitwise": True}, launched["launches"]
+            "bitwise": True,
+            "direct": {k: direct[k] for k in ("losses", "params_sha256")}
+            }, launched["launches"]
 
 
 def phase_elastic(dev) -> tuple[dict, dict]:
@@ -2298,8 +2359,373 @@ def phase_elastic(dev) -> tuple[dict, dict]:
             f"elastic: K1-K3 launches {el['launches_eager']}, want "
             f"{2 * layers} each (two records' eager steps)")
     return {"losses": el["losses"], "reform_s": el["reform_s"],
-            "gspmd": el["gspmd"], "worlds": worlds,
-            "bitwise": True}, el["launches_eager"]
+            "gspmd": el["gspmd"], "worlds": worlds, "bitwise": True,
+            "reference": {k: ref[k] for k in (
+                "losses", "params_sha256", "launches_eager")}
+            }, el["launches_eager"]
+
+
+# The autoscale phase: an SLO far below the trainer's step (26-40 ms) and
+# its commit of the 557 MB state (218-1364 ms, PERF.md), so that every window
+# breaches; a window every 0.1 s, so that every commit's blob is one
+# window; one policy.eval fault.
+AUTOSCALE_ENV = {"HVD_AUTOSCALE": "1", "HVD_AUTOSCALE_SLO_MS": "10",
+                 "HVD_AUTOSCALE_INTERVAL": "0.1",
+                 "HVD_AUTOSCALE_BREACH_WINDOWS": "2"}
+AUTOSCALE_FAULT = "policy.eval:error:times=1"
+OBSERVER_AGREEMENT = 0.25  # observer's mean step time vs the worker's own
+
+
+def phase_autoscale(dev, elastic) -> tuple[dict, dict]:
+    """The cached trainer of ``[elastic]`` under ``hvd.elastic.run`` through
+    ``start_elastic`` at ``--min-np 1 --max-np 1`` with ``HVD_AUTOSCALE=1``
+    and an SLO below its step time (``AUTOSCALE_ENV``), uninterrupted
+    (``--elastic-worker ... autoscale``); this process runs the driver and
+    the policy, with one ``policy.eval`` fault. Requires: sensor blobs of
+    the job's round; the breach streak past
+    ``HVD_AUTOSCALE_BREACH_WINDOWS`` and no membership decision (the world
+    is at its ceiling); the fault a counted ``hold``/``error`` and the job
+    done; the observer's mean step time within ``OBSERVER_AGREEMENT`` of
+    the worker's own; losses and parameters bitwise ``[elastic]``'s
+    uninterrupted run with the policy off; K1-K3 ``num_layers`` launches
+    each (the record's eager step). Prints the observer's cost a commit,
+    on against off in turns."""
+    import tempfile
+    from horovod_tpu_torch.elastic import launch as elastic_launch
+    from horovod_tpu_torch.elastic import policy
+    from horovod_tpu_torch.elastic.driver import ROUND_KEY
+    from horovod_tpu_torch.runner import launch as launch_mod
+    from horovod_tpu_torch.utils import faults
+    me = os.path.abspath(__file__)
+    blobs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autoscale.json")
+        os.environ["HVD_FAULT_SPEC"] = AUTOSCALE_FAULT
+        faults.refresh()
+        try:
+            args = launch_mod.parse_args(
+                ["--min-np", "1", "--max-np", "1", "-H", "localhost:1",
+                 *[a for k, v in AUTOSCALE_ENV.items()
+                   for a in ("--env", f"{k}={v}")],
+                 "--", sys.executable, me, ELASTIC_WORKER_FLAG, path,
+                 "autoscale"])
+            job = elastic_launch.start_elastic(args, args.command[1:])
+            try:
+                require(job.policy is not None,
+                        "autoscale: HVD_AUTOSCALE=1 started no policy")
+                deadline = time.monotonic() + 600
+                while not job.driver.finished():
+                    require(time.monotonic() < deadline,
+                            "autoscale: the job did not finish")
+                    raw = job.infra.kv.get(policy.sensor_key(0))
+                    if raw is not None:
+                        blob = json.loads(raw.decode())
+                        blobs[blob["seq"]] = blob
+                    time.sleep(0.02)
+                rounds = int(job.infra.kv.get(ROUND_KEY))
+            finally:
+                rc = job.wait()
+        finally:
+            del os.environ["HVD_FAULT_SPEC"]
+            faults.refresh()
+        require(rc == 0, f"autoscale: the launcher's job exited {rc}")
+        with open(path) as f:
+            run = json.load(f)
+    stats = job.policy.policy_stats()
+    decisions = [(d["action"], d["reason"]) for d in stats["decisions"]]
+    obs = run["observer"]
+    own = run["iteration_s"][1:]  # the first holds the record and capture
+    own_mean = sum(own) / len(own)
+    cost = {k: sorted(v)[len(v) // 2] for k, v in obs["note_cost_s"].items()}
+    print(f"[autoscale] sensor blobs {len(blobs)} (seq {sorted(blobs)}), "
+          f"rounds {sorted({b['round'] for b in blobs.values()})} of job "
+          f"round {rounds}; policy: breach streak {stats['breach_streak']} "
+          f"(windows needed {AUTOSCALE_ENV['HVD_AUTOSCALE_BREACH_WINDOWS']}"
+          f"), world {stats['world']}, bounds {stats['bounds']}, decisions "
+          f"{decisions}")
+    print(f"[autoscale] step time: observer {obs['step_s_mean'] * 1e3:.1f} "
+          f"ms over {obs['steps']} steps ({obs['slo_violations']:.0f} over "
+          f"the SLO), the worker's own {own_mean * 1e3:.1f} ms; losses "
+          f"bitwise the policy-off run "
+          f"{run['losses'] == elastic['reference']['losses']}, parameters "
+          f"bitwise "
+          f"{run['params_sha256'] == elastic['reference']['params_sha256']}")
+    print(f"[autoscale] observer's cost a commit (median of "
+          f"{len(obs['note_cost_s']['on'])}, in turns): on "
+          f"{cost['on'] * 1e6:.1f} us, off {cost['off'] * 1e6:.2f} us on "
+          f"{nvidia_smi()}")
+    print(f"[autoscale] K1-K3 in the record's eager run "
+          f"{run['launches_eager']}")
+    require(blobs and all(b["round"] == rounds for b in blobs.values()),
+            f"autoscale: no sensor blob of round {rounds}: {blobs}")
+    require(stats["breach_streak"]
+            > int(AUTOSCALE_ENV["HVD_AUTOSCALE_BREACH_WINDOWS"])
+            and stats["world"] == 1 and stats["bounds"] == (1, 1),
+            f"autoscale: breach streak {stats['breach_streak']}")
+    require(decisions == [("hold", "error")],
+            f"autoscale: want one hold/error and no membership decision, "
+            f"got {decisions}")
+    require(abs(obs["step_s_mean"] - own_mean)
+            <= OBSERVER_AGREEMENT * own_mean and obs["steps"] == len(own),
+            f"autoscale: observer {obs['step_s_mean']} s against the "
+            f"worker's {own_mean} s")
+    require(run["losses"] == elastic["reference"]["losses"]
+            and run["params_sha256"]
+            == elastic["reference"]["params_sha256"],
+            "autoscale: the run is not bitwise the policy-off run")
+    require(all(v == run["layers"] for v in run["launches_eager"].values()),
+            f"autoscale: K1-K3 launches {run['launches_eager']}")
+    return {"blobs": len(blobs), "breach_streak": stats["breach_streak"],
+            "decisions": decisions,
+            "observer_step_ms": obs["step_s_mean"] * 1e3,
+            "worker_step_ms": own_mean * 1e3,
+            "note_cost_us": {k: v * 1e6 for k, v in cost.items()},
+            "bitwise": True}, run["launches_eager"]
+
+
+def returning_trainer_worker(out_path: str) -> dict:
+    """:func:`trainer_worker` in an actor or task process; returns what it
+    wrote."""
+    trainer_worker(out_path)
+    with open(out_path.format(rank=int(os.environ.get("RANK", "0")))) as f:
+        return json.load(f)
+
+
+def returning_elastic_worker(out_path: str, mode: str) -> dict:
+    """:func:`elastic_worker` in an actor process; returns what it wrote."""
+    elastic_worker(out_path, mode)
+    with open(out_path) as f:
+        return json.load(f)
+
+
+def phase_ray(dev, launch, elastic) -> tuple[dict, dict]:
+    """The Ray executors over ``testing.make_process_ray`` (an actor is a
+    child process) on ``cuda:0`` at an NCCL world of 1, the stub's node
+    offering Ray this machine's cards as GPUs, as a Ray node on it would:
+    each actor asks for one and sees only that one.
+    ``RayExecutor(num_workers=1)`` runs :func:`trainer_worker`, which must
+    be bitwise ``[launch]``'s direct run with K1-K3 ``num_layers x STEPS``
+    launches, on the card Ray gave the actor;
+    ``ElasticRayExecutor(min_workers=1, max_workers=1)`` runs
+    :func:`elastic_worker` uninterrupted, bitwise ``[elastic]``'s
+    reference. Prints the executor's start-up against ``[launch]``'s."""
+    import tempfile
+    from horovod_tpu_torch import testing
+    sys.modules["ray"] = ray = testing.make_process_ray(
+        gpus=torch.cuda.device_count())
+    try:
+        from horovod_tpu_torch.ray import ElasticRayExecutor, RayExecutor
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.time()
+            ex = RayExecutor(num_workers=1)
+            ex.start()
+            try:
+                (static,) = ex.run(returning_trainer_worker, args=(
+                    os.path.join(tmp, "static.{rank}.json"),))
+            finally:
+                ex.shutdown()
+            t1 = time.time()
+            ex = ElasticRayExecutor(min_workers=1, max_workers=1,
+                                    elastic_timeout=600)
+            ex.start()
+            try:
+                results = ex.run(returning_elastic_worker, args=(
+                    os.path.join(tmp, "elastic.json"), "reference"))
+            finally:
+                ex.shutdown()
+            t2 = time.time()
+    finally:
+        ray.shutdown()
+        del sys.modules["ray"]
+    require(len(results) == 1, f"ray: elastic results {len(results)}")
+    el = results[0]
+    direct = launch["direct"]
+    startup = {"ray_s": static["t_init"] - t0,
+               "launched_s": launch["startup"]["launched_s"],
+               "direct_s": launch["startup"]["direct_s"]}
+    print(f"[ray] RayExecutor's worker: world {static['world']} on "
+          f"{static['device']} ({static['backend']}), env {static['env']}; "
+          f"losses bitwise [launch]'s direct run "
+          f"{static['losses'] == direct['losses']}, parameters bitwise "
+          f"{static['params_sha256'] == direct['params_sha256']}; K1-K3 "
+          f"{static['launches']}")
+    print(f"[ray] ElasticRayExecutor: worlds {el['worlds']}; losses bitwise "
+          f"[elastic]'s reference "
+          f"{el['losses'] == elastic['reference']['losses']}"
+          f", parameters bitwise "
+          f"{el['params_sha256'] == elastic['reference']['params_sha256']}; "
+          f"K1-K3 in the record's eager run {el['launches_eager']}")
+    print(f"[ray] start-up, start() to init() done: RayExecutor "
+          f"{startup['ray_s']:.2f} s, against [launch]'s launcher "
+          f"{startup['launched_s']:.2f} s and direct {startup['direct_s']:.2f}"
+          f" s; the static run {t1 - t0:.1f} s, the elastic {t2 - t1:.1f} s "
+          f"on {nvidia_smi()}")
+    want = static["layers"] * STEPS
+    require(static["world"] == 1 and static["backend"] == "nccl"
+            and static["env"]["HVD_CUDA_DEVICE"] == "0"
+            and static["env"]["CUDA_VISIBLE_DEVICES"] == "0"
+            and static["device"] == str(dev),
+            f"ray: the actor's world {static}")
+    require(static["losses"] == direct["losses"]
+            and static["params_sha256"] == direct["params_sha256"],
+            "ray: RayExecutor's trainer is not bitwise the direct one")
+    require(all(v == want for v in static["launches"].values()),
+            f"ray: K1-K3 launches {static['launches']}, want {want}")
+    require(len(el["worlds"]) == 1 and el["worlds"][0]["backend"] == "nccl"
+            and el["losses"] == elastic["reference"]["losses"]
+            and el["params_sha256"] == elastic["reference"]["params_sha256"],
+            "ray: ElasticRayExecutor's run is not bitwise [elastic]'s "
+            "reference")
+    require(el["launches_eager"] == elastic["reference"]["launches_eager"],
+            f"ray: elastic K1-K3 launches {el['launches_eager']}")
+    return {"losses": static["losses"], "startup": startup, "bitwise": True,
+            "elastic_launches": el["launches_eager"]}, static["launches"]
+
+
+# The spark phase's fit: FIT_SEQS seeded sequences of SEQ tokens, BATCH a
+# step, Adam at 1e-3 (the estimator's default).
+FIT_SEQS = 16
+
+
+def fit_lm_init(generator, batch):
+    """The estimator's recipe: the full-width TransformerLM (the trainer's
+    configuration) on the batch's device, from ``generator``."""
+    from horovod_tpu_torch.models import TransformerConfig, TransformerLM
+    model = TransformerLM(TransformerConfig(attn_mode="ulysses"),
+                          device=batch[0].device)
+    model.reset_parameters(generator)
+    return model
+
+
+def fit_lm_loss(model, batch):
+    from horovod_tpu_torch.models import lm_loss
+    (tokens,) = batch
+    return lm_loss(model(tokens), tokens)
+
+
+def _beside(fn, *args, **kwargs):
+    """Start ``fn(*args, **kwargs)`` on a thread; returns a function that
+    waits for it and returns its result or raises its error."""
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn(*args, **kwargs)
+        except BaseException as e:  # raised by the caller's wait
+            box["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["value"]
+
+    return wait
+
+
+def phase_spark(dev, launch) -> tuple[dict, dict]:
+    """Spark over ``testing.make_process_pyspark`` (a barrier task is a
+    child process) on ``cuda:0``: ``spark.run(num_proc=1)`` of
+    :func:`trainer_worker`, bitwise ``[launch]``'s direct run with K1-K3
+    ``num_layers x STEPS`` launches; then ``spark.fit`` of the full-width
+    TransformerLM from FIT_SEQS seeded sequences with a ``store_path``: 2
+    epochs; a rerun at 2 epochs runs 0 and gives the same parameters; a
+    3-epoch fit resumed from that Store must equal a 3-epoch fit from
+    scratch bit for bit. Prints the per-epoch checkpoint's size, and its
+    save and load times on this host (the Store's tree saved again)."""
+    import tempfile
+    from horovod_tpu_torch import checkpoint, testing
+    sys.modules["pyspark"] = testing.make_process_pyspark()
+    try:
+        import horovod_tpu_torch.spark as spark
+        from horovod_tpu_torch.spark import estimator
+        with tempfile.TemporaryDirectory() as tmp:
+            tokens = synthetic_tokens(FIT_SEQS, SEQ, 32000, seed=1)
+            store = os.path.join(tmp, "store")
+            fit = dict(batch_size=BATCH, num_proc=1, seed=0)
+            # the trainer's task and the 3-epoch fit from scratch run beside
+            # the Store's fits (task processes of their own on the same
+            # card): they share nothing with them
+            t0 = time.time()
+            run_join = _beside(spark.run, returning_trainer_worker, args=(
+                os.path.join(tmp, "run.{rank}.json"),), num_proc=1)
+            scratch_join = _beside(
+                spark.fit, (tokens,), fit_lm_init, fit_lm_loss, epochs=3,
+                store_path=os.path.join(tmp, "scratch"), **fit)
+            try:
+                two = spark.fit((tokens,), fit_lm_init, fit_lm_loss,
+                                epochs=2, store_path=store, **fit)
+                t_fit = time.time() - t0
+                (rerun,) = spark.run(estimator._fit_task, args=(
+                    (tokens,), fit_lm_init, fit_lm_loss, None, 2, BATCH,
+                    True, 0, store, None), num_proc=1)
+                resumed = spark.fit((tokens,), fit_lm_init, fit_lm_loss,
+                                    epochs=3, store_path=store, **fit)
+            finally:
+                (run,) = run_join()
+                scratch = scratch_join()
+            t_all = time.time() - t0
+            ckpt_dir = os.path.join(store, "checkpoints")
+            steps = checkpoint.Checkpointer(ckpt_dir).all_steps()
+            mb = sum(os.path.getsize(os.path.join(ckpt_dir, "1", f))
+                     for f in os.listdir(os.path.join(ckpt_dir, "1"))) / 1e6
+            t0 = time.perf_counter()
+            tree = checkpoint.Checkpointer(ckpt_dir).restore(step=1)
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            checkpoint.Checkpointer(os.path.join(tmp, "again")).save(1, tree)
+            save_s = time.perf_counter() - t0
+    finally:
+        del sys.modules["pyspark"]
+
+    def same(a, b):
+        return a.keys() == b.keys() and all(
+            np.array_equal(a[k], b[k]) for k in a)
+
+    direct = launch["direct"]
+    finite = all(np.isfinite(v).all() for v in two.values())
+    print(f"[spark] spark.run's task: world {run['world']} on "
+          f"{run['device']} ({run['backend']}), env {run['env']}; losses "
+          f"bitwise [launch]'s direct run {run['losses'] == direct['losses']}"
+          f", parameters bitwise "
+          f"{run['params_sha256'] == direct['params_sha256']}; K1-K3 "
+          f"{run['launches']}")
+    print(f"[spark] fit of the full-width TransformerLM ({FIT_SEQS} x {SEQ} "
+          f"tokens, batch {BATCH}): 2 epochs in {t_fit:.1f} s (beside the "
+          f"trainer's task and the 3-epoch fit from scratch; all five "
+          f"tasks {t_all:.1f} s), finite "
+          f"{finite}; the rerun ran {rerun['epochs_run']} epochs, same "
+          f"parameters {same(rerun['params'], two)}; 3 epochs resumed "
+          f"from the Store bitwise 3 from scratch {same(resumed, scratch)} "
+          f"(and not the 2-epoch state: {not same(resumed, two)}); Store "
+          f"steps {steps}")
+    print(f"[spark] the per-epoch checkpoint: {mb:.1f} MB (parameters and "
+          f"Adam's moments), saved again here in {save_s * 1e3:.1f} ms and "
+          f"loaded in {load_s * 1e3:.1f} ms on {nvidia_smi()}")
+    want = run["layers"] * STEPS
+    require(run["world"] == 1 and run["backend"] == "nccl"
+            and run["env"]["HVD_CUDA_DEVICE"] == "0"
+            and run["device"] == str(dev), f"spark: the task's world {run}")
+    require(run["losses"] == direct["losses"]
+            and run["params_sha256"] == direct["params_sha256"],
+            "spark: spark.run's trainer is not bitwise the direct one")
+    require(all(v == want for v in run["launches"].values()),
+            f"spark: K1-K3 launches {run['launches']}, want {want}")
+    require(finite and rerun["epochs_run"] == 0
+            and same(rerun["params"], two),
+            "spark: the rerun at the Store's epochs did not run 0 epochs "
+            "to the same parameters")
+    require(same(resumed, scratch) and not same(resumed, two)
+            and steps == [0, 1, 2],
+            "spark: the fit resumed from the Store is not bitwise the fit "
+            "from scratch")
+    return {"losses": run["losses"], "fit_s": t_fit, "tasks_s": t_all,
+            "checkpoint": {"mb": mb, "save_ms": save_s * 1e3,
+                           "load_ms": load_s * 1e3},
+            "bitwise": True}, run["launches"]
 
 
 def phase_moe(dev):
@@ -2939,6 +3365,10 @@ def main(argv) -> int:
     ckpt = timed("checkpoint", phase_checkpoint, dev)
     launch, launch_launches = timed("launch", phase_launch, dev)
     elastic, elastic_launches = timed("elastic", phase_elastic, dev)
+    autoscale, autoscale_launches = timed("autoscale", phase_autoscale, dev,
+                                          elastic)
+    ray, ray_launches = timed("ray", phase_ray, dev, launch, elastic)
+    spark, spark_launches = timed("spark", phase_spark, dev, launch)
     moe, moe_launches = timed("moe", phase_moe, dev)
     pipeline = timed("pipeline", phase_pipeline, dev)
     long_ctx = timed("long context", phase_long_context)
@@ -2956,6 +3386,9 @@ def main(argv) -> int:
         row["launches_cached_step"] = cached_launches[name]
         row["launches_launch"] = launch_launches[name]
         row["launches_elastic"] = elastic_launches[name]
+        row["launches_autoscale"] = autoscale_launches[name]
+        row["launches_ray"] = ray_launches[name]
+        row["launches_spark"] = spark_launches[name]
         row["launches_long_context"] = {
             mode: res["launches_per_step"][-1][name]
             for mode, res in long_ctx.items()}
@@ -2978,6 +3411,7 @@ def main(argv) -> int:
     print(json.dumps({"fusion": fusion}))
     print(json.dumps({"cached_step": cached, "checkpoint": ckpt}))
     print(json.dumps({"launch": launch, "elastic": elastic}))
+    print(json.dumps({"autoscale": autoscale, "ray": ray, "spark": spark}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,9 @@ rendezvous, host discovery and worker registry, started by the launcher's
     python -m horovod_tpu_torch.runner.launch -np 2 --min-np 1 --max-np 4 \
         --host-discovery-script ./discover.sh -- python train.py
 
-The autoscale policy (``AutoscalePolicy``) is not ported yet; its commit
-seam is ``state._policy_note_commit``.
+With ``HVD_AUTOSCALE=1`` the launcher also starts the closed-loop
+:class:`AutoscalePolicy` (``policy.py``), which scales the world from the
+step times and straggler blames the workers' commits report.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from .discovery import (FixedHosts, HostDiscovery, HostDiscoveryScript,
 from .driver import ElasticDriver, ElasticRendezvous, Results
 from .notification import (NOTIFY_KEY, WorkerNotificationManager,
                            notification_manager)
+from .policy import AutoscalePolicy, PolicyEvalError
 from .registration import WorkerStateRegistry
 from .sampler import ElasticSampler
 from .state import HostUpdateResult, ObjectState, State, TorchState, run_fn
@@ -84,10 +86,11 @@ def run(func):
 
 
 __all__ = [
-    "ElasticDriver", "ElasticRendezvous", "ElasticSampler", "FixedHosts",
-    "HorovodInternalError", "HostDiscovery", "HostDiscoveryScript",
-    "HostManager", "HostUpdateResult", "HostsUpdatedInterrupt", "NOTIFY_KEY",
-    "ObjectState", "Results", "State", "TorchState",
-    "WorkerNotificationManager", "WorkerStateRegistry",
-    "notification_manager", "run", "run_fn", "wrap_internal_errors",
+    "AutoscalePolicy", "ElasticDriver", "ElasticRendezvous",
+    "ElasticSampler", "FixedHosts", "HorovodInternalError", "HostDiscovery",
+    "HostDiscoveryScript", "HostManager", "HostUpdateResult",
+    "HostsUpdatedInterrupt", "NOTIFY_KEY", "ObjectState", "PolicyEvalError",
+    "Results", "State", "TorchState", "WorkerNotificationManager",
+    "WorkerStateRegistry", "notification_manager", "run", "run_fn",
+    "wrap_internal_errors",
 ]

@@ -257,12 +257,15 @@ class HostDiscoveryScript(HostDiscovery):
 
 class FixedHosts(HostDiscovery):
     """A fixed but settable host set: the launcher's ``-H`` hosts of an
-    elastic job, and what scripted churn (:class:`ScriptedChurn`)
-    changes."""
+    elastic job, and what scripted churn (:class:`ScriptedChurn`) and the
+    autoscale policy change. It remembers the hosts taken out, oldest
+    first, so that a later scale-up can bring back a machine that exists
+    (:meth:`readmit`)."""
 
     def __init__(self, host_slots: dict[str, int]):
         self._mu = threading.Lock()
         self._host_slots = dict(host_slots)
+        self._removed: list[tuple[str, int]] = []
 
     def find_available_hosts_and_slots(self) -> dict[str, int]:
         with self._mu:
@@ -273,15 +276,34 @@ class FixedHosts(HostDiscovery):
             self._host_slots = dict(host_slots)
 
     def add_hosts(self, host_slots: dict[str, int]) -> None:
-        """Grow the discovered set (scripted scale-up)."""
+        """Grow the discovered set (a scale-up)."""
         with self._mu:
             self._host_slots.update(host_slots)
+            self._removed = [(h, n) for h, n in self._removed
+                             if h not in host_slots]
 
     def remove_host(self, host: str) -> bool:
-        """Shrink the discovered set (scripted reclaim/preemption).
+        """Shrink the discovered set (a reclaim, preemption or scale-down).
         Returns whether the host was present."""
         with self._mu:
-            return self._host_slots.pop(host, None) is not None
+            slots = self._host_slots.pop(host, None)
+            if slots is None:
+                return False
+            self._removed.append((host, slots))
+            return True
+
+    def readmit(self, count: int, exclude=(),
+                min_slots: int = 1) -> dict[str, int]:
+        """Up to ``count`` of the hosts taken out, oldest first, with their
+        slots, skipping ``exclude`` and hosts of fewer than ``min_slots``
+        slots; they are no longer counted as removed (the caller adds them
+        back)."""
+        with self._mu:
+            back = [(h, n) for h, n in self._removed
+                    if h not in exclude and n >= min_slots
+                    ][:max(int(count), 0)]
+            self._removed = [e for e in self._removed if e not in back]
+            return dict(back)
 
 
 class ScriptedChurn:
@@ -289,8 +311,9 @@ class ScriptedChurn:
     :class:`FixedHosts` set, so that churn is a seeded schedule:
 
     * ``add``: ``count`` hosts join the set; the driver grows the world at
-      its next poll. Hosts that churn took out come back first, oldest
-      first, with their slots; then fresh names (``churn0``, ``churn1``,
+      its next poll. Hosts that churn or the autoscale policy took out
+      come back first, oldest first, with their slots
+      (:meth:`FixedHosts.readmit`); then fresh names (``churn0``, ``churn1``,
       ...). A worker is a process here, and a name no machine answers to
       could not be started, where a host that left is a machine that
       exists (the JAX package's loopback ranks are threads, and it mints
@@ -315,7 +338,6 @@ class ScriptedChurn:
         self._prefix = host_prefix
         self._driver = None
         self._added = 0
-        self._gone: list[tuple[str, int]] = []  # (host, slots) churn took out
         self._mu = _inv.make_lock("elastic.churn.mu")
         # (monotonic seconds, action, host): the event log a caller may
         # pass in to read after the run
@@ -333,9 +355,8 @@ class ScriptedChurn:
               grace_s: float = 30.0) -> None:
         from .. import metrics as _metrics
         if action == "add":
+            back = self._hosts.readmit(count)
             with self._mu:
-                back = dict(self._gone[:count])
-                del self._gone[:count]
                 minted = count - len(back)
                 fresh = {f"{self._prefix}{self._added + i}": self._slots
                          for i in range(minted)}
@@ -351,10 +372,7 @@ class ScriptedChurn:
                 return
             if action == "preempt" and self._driver is not None:
                 self._driver.set_stale_grace(host, grace_s)
-            slots = self._hosts.find_available_hosts_and_slots().get(host)
-            if self._hosts.remove_host(host):
-                with self._mu:
-                    self._gone.append((host, slots))
+            self._hosts.remove_host(host)
             hvd_logging.info("scripted churn: -host %s (%s)", host,
                              "abrupt" if action == "remove"
                              else f"preempt, grace {grace_s:.1f}s")

@@ -524,13 +524,19 @@ class ElasticDriver:
         self._stale_grace[host] = float(grace_s)
 
     def _stop_stale_workers(self, stale_keys) -> None:
+        # a host's grace is for every one of its slots that goes stale now
+        # (a host of several slots leaves whole), and is then used up
+        graces: dict[str, float] = {}
+        for key in stale_keys:
+            if key[0] not in graces:
+                graces[key[0]] = self._stale_grace.pop(
+                    key[0], envs.get_float(envs.ELASTIC_GRACE, 0.0))
         for key in stale_keys:
             with self._proc_lock:
                 proc = self._active_procs.get(key)
             if proc is None or proc.poll() is not None:
                 continue
-            grace = self._stale_grace.pop(
-                key[0], envs.get_float(envs.ELASTIC_GRACE, 0.0))
+            grace = graces[key[0]]
             if grace <= 0:
                 hvd_logging.info("terminating worker %s[%d]: slot removed",
                                  *key)

@@ -8,7 +8,9 @@ gets the launcher's contract for its round and a card of its machine from
 the job's :class:`~horovod_tpu_torch.runner.launch.CardPool`; a worker
 that outlives a re-form keeps its card. Where ``HVD_FAULT_SPEC`` schedules
 membership churn over ``-H`` hosts, the workers' actions reach the job's
-:class:`~.discovery.ScriptedChurn` over the KV store.
+:class:`~.discovery.ScriptedChurn` over the KV store; with
+``HVD_AUTOSCALE=1`` the job's :class:`~.policy.AutoscalePolicy` changes the
+same host set from the workers' sensors (``ElasticJob.policy``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import sys
 from ..runner import launch as launch_mod
 from ..utils import logging as hvd_logging
 from .bootstrap import make_elastic_infra
+from . import policy as _policy
 from .discovery import FixedHosts, HostDiscoveryScript, install_scripted_churn
 
 
@@ -32,14 +35,36 @@ def _build_discovery(args):
     return FixedHosts({h.hostname: h.slots for h in specs})
 
 
-class ElasticJob:
-    """A started elastic job: its driver-side pieces (``infra``, ``driver``)
-    and :meth:`wait`, which joins it and returns the launcher's exit
-    code."""
+def peer_failure_env(max_np: int | None, extra: dict) -> dict:
+    """``extra`` with the NCCL settings of a job whose world can exceed
+    one rank, where a peer can die mid-collective: the wait for a
+    collective blocks until it completed or the process group's timeout
+    (``HVD_PROCESS_GROUP_TIMEOUT``) failed it, so an optimizer never
+    applies a gradient a dead peer left half reduced, and the failure
+    leaves the process alive (torch's default would end it) for the
+    survivors to abort the group and re-form."""
+    if max_np is None or max_np > 1:
+        for name, value in (("TORCH_NCCL_BLOCKING_WAIT", "1"),
+                            ("TORCH_NCCL_ASYNC_ERROR_HANDLING", "2")):
+            if name not in os.environ:
+                extra.setdefault(name, value)
+    return extra
 
-    def __init__(self, infra):
+
+class ElasticJob:
+    """A started elastic job: its driver-side pieces (``infra``, ``driver``,
+    and ``policy``, the autoscale policy or None) and :meth:`wait`, which
+    joins it and returns the launcher's exit code."""
+
+    def __init__(self, infra, policy=None):
         self.infra = infra
         self.driver = infra.driver
+        self.policy = policy
+
+    def stop(self) -> None:
+        if self.policy is not None:
+            self.policy.stop()
+        self.infra.stop()
 
     def wait(self) -> int:
         driver = self.driver
@@ -47,7 +72,7 @@ class ElasticJob:
             driver.join()
             results = driver.get_results()
         finally:
-            self.infra.stop()
+            self.stop()
         if results.error_message:
             print(f"launch elastic: {results.error_message}", file=sys.stderr)
             return 1
@@ -87,18 +112,7 @@ def start_elastic(args, command: list[str]) -> ElasticJob:
     if churn is not None:
         churn.attach_driver(infra.driver)
         infra.churn = churn
-    extra_base = launch_mod.extra_env(args)
-    if max_np is None or max_np > 1:
-        # where a peer can die mid-collective: the wait for a collective
-        # blocks until it completed or the process group's timeout
-        # (HVD_PROCESS_GROUP_TIMEOUT) failed it, so an optimizer never
-        # applies a gradient a dead peer left half reduced, and the
-        # failure leaves the process alive (torch's default would end it)
-        # for the survivors to abort the group and re-form
-        for name, value in (("TORCH_NCCL_BLOCKING_WAIT", "1"),
-                            ("TORCH_NCCL_ASYNC_ERROR_HANDLING", "2")):
-            if name not in os.environ:
-                extra_base.setdefault(name, value)
+    extra_base = peer_failure_env(max_np, launch_mod.extra_env(args))
     cards = launch_mod.CardPool()
 
     def create_worker_fn(slot_info, spec_round: int):
@@ -106,20 +120,25 @@ def start_elastic(args, command: list[str]) -> ElasticJob:
         all_local = all(launch_mod.is_local_host(s["hostname"])
                         for s in spec["slots"])
         extra = infra.worker_extra_env(spec_round, extra_base)
+        wait_s = launch_mod.departure_wait_s(
+            job.policy.grace_s if job.policy is not None else 0.0)
         return cards.spawn(slot_info.hostname, lambda card: (
             launch_mod.spawn_worker(slot_info, command, launch_mod.worker_env(
                 slot_info, coordinator_addr=spec["coord_addr"],
                 coordinator_port=spec["coord_port"],
                 kv_addr="127.0.0.1" if all_local else infra.kv_addr,
                 kv_port=infra.kv_port, secret=infra.secret, extra=extra,
-                card=card), args)))
+                card=card), args)), wait_s=wait_s)
 
+    job = ElasticJob(infra, _policy.maybe_start(
+        infra.driver, discovery, infra.kv, min_np=min_np, max_np=max_np,
+        env=extra_base))
     try:
         infra.driver.start(args.np or min_np, create_worker_fn)
     except BaseException:
-        infra.stop()
+        job.stop()
         raise
-    return ElasticJob(infra)
+    return job
 
 
 def run_elastic(args, command: list[str]) -> int:

@@ -13,9 +13,9 @@ of reference Horovod's ``torch/elastic/state.py``:
   ``HorovodInternalError`` restores the last commit and syncs;
   ``HostsUpdatedInterrupt`` syncs unless hosts were only removed.
 
-The JAX package's commit also feeds its autoscale policy
-(``elastic/policy.note_commit``); the port has no policy yet, and
-:func:`_policy_note_commit` is that seam.
+Every commit also feeds the autoscale policy's observer
+(:func:`~horovod_tpu_torch.elastic.policy.note_commit`: one cached check
+while ``HVD_AUTOSCALE`` is off).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from .. import metrics as _metrics
 from ..exceptions import HorovodInternalError, HostsUpdatedInterrupt
 from ..utils import faults as _faults
 from ..utils.tree import flatten, unflatten
+from . import policy as _policy
 
 
 class HostUpdateResult(enum.IntFlag):
@@ -40,12 +41,6 @@ class HostUpdateResult(enum.IntFlag):
     removed = 1
     added = 2
     mixed = removed | added
-
-
-def _policy_note_commit() -> None:
-    """The autoscale policy's per-commit clock (the JAX package's
-    ``elastic.policy.note_commit``); nothing to feed until the port has a
-    policy."""
 
 
 class State:
@@ -93,7 +88,7 @@ class State:
         # the chaos seam: `worker:crash:rank=R:at_step=N` exits rank R at
         # its N-th commit, and the membership actions start churn here
         _faults.inject("worker", rank=self._rank(), step=self._commits)
-        _policy_note_commit()
+        _policy.note_commit()
         self.save()
         # the state plane's seam: with HVD_CKPT_DIR set, every
         # HVD_CKPT_INTERVAL-th committed tree goes to the background

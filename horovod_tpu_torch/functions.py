@@ -15,7 +15,12 @@ from .ops import collectives
 
 def _broadcast_in_place(tensors: list, root_rank: int,
                         process_set=None) -> None:
-    synced = collectives.grouped_broadcast(tensors, root_rank,
+    # a tensor off the world's device (the step count torch's Adam keeps on
+    # the host beside moments on the card) travels on the world's device
+    from . import runtime
+    device = runtime.device()
+    wire = [t if t.device == device else t.to(device) for t in tensors]
+    synced = collectives.grouped_broadcast(wire, root_rank,
                                            process_set=process_set)
     with torch.no_grad():
         for t, s in zip(tensors, synced):

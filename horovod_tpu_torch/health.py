@@ -512,6 +512,20 @@ class StragglerTracker:
             }
 
 
+def straggler_blames() -> dict[int, int]:
+    """The straggler rounds this process's trackers have charged to each
+    global rank, from ``hvd_straggler_rounds_total``: the eviction sensor
+    of the autoscale policy. Each worker's observer publishes deltas of it
+    and the driver's policy adds the blames up across reporters."""
+    out: dict[int, int] = {}
+    for labelitems, v in _metrics.STRAGGLER_ROUNDS.series().items():
+        try:
+            out[int(dict(labelitems).get("rank"))] = int(v)
+        except (TypeError, ValueError):
+            continue
+    return out
+
+
 _registry_mu = threading.Lock()
 _watchdogs: list[HealthWatchdog] = []
 

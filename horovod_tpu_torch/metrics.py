@@ -460,6 +460,25 @@ ELASTIC_WARM_REUSE = counter(
     "re-armed after the warm confirmation round).",
     labels=("kind",), always=True)
 
+# -- closed-loop autoscaling (elastic/policy.py) ---------------------------
+ELASTIC_STEP_SECONDS = histogram(
+    "hvd_elastic_step_seconds",
+    "Wall time between consecutive elastic state commits (the per-step "
+    "latency the autoscale policy's SLO rule watches).",
+    buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+             30.0))
+ELASTIC_SLO_VIOLATIONS = counter(
+    "hvd_elastic_slo_violations_total",
+    "Committed steps whose commit-to-commit wall time exceeded the "
+    "HVD_AUTOSCALE_SLO_MS target (recorded only with a nonzero target).")
+ELASTIC_POLICY_DECISIONS = counter(
+    "hvd_elastic_policy_decisions_total",
+    "Autoscale policy decisions by action (add / remove / evict / hold) "
+    "and reason (slo-breach / idle / straggler / stale-round / protected "
+    "/ restore-cost / error); rank names the blamed global rank on "
+    "evictions, empty otherwise.",
+    labels=("action", "reason", "rank"), always=True)
+
 # -- checkpoint state plane (checkpoint.py) ------------------------------
 CKPT_SNAPSHOT_SECONDS = histogram(
     "hvd_ckpt_snapshot_seconds",

@@ -31,6 +31,7 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 
 from . import hosts as hosts_mod
 from . import safe_exec
@@ -235,32 +236,81 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _local_card_count() -> int | None:
+    """The cards this machine shows its workers (which inherit this
+    process's ``CUDA_VISIBLE_DEVICES``); None where it shows none, as on a
+    host that runs gloo workers."""
+    try:
+        import torch
+    except ImportError:
+        return None
+    count = torch.cuda.device_count()
+    return count or None
+
+
+def departure_wait_s(policy_grace_s: float = 0.0) -> float:
+    """How long an elastic job's worker spawn waits for a card of its
+    machine (:meth:`CardPool.spawn`): the longest grace a departing worker
+    gets (``HVD_ELASTIC_GRACE``, or the autoscale policy's), then its
+    termination."""
+    return (max(envs.get_float(envs.ELASTIC_GRACE, 0.0), policy_grace_s)
+            + safe_exec.GRACEFUL_TERMINATION_TIME_S)
+
+
 class CardPool:
     """The cards of each machine, one to each live worker. A worker gets
     the lowest card of its machine that no live worker of this launcher
     holds; the card is free again once that worker's process has exited,
     so a worker re-spawned into a re-formed world takes a free card. Host
     names that alias one machine (``localhost``, ``127.0.0.1``, the host's
-    own name) share one pool."""
+    own name) share one pool. The local machine has as many cards as it
+    shows; another machine has no bound here."""
 
     def __init__(self):
         self._mu = threading.Lock()
         self._held: dict[str, dict[int, object]] = {}
+        self._local_cards: int | None = None  # counted at first use
 
     @staticmethod
     def machine(hostname: str) -> str:
         return "localhost" if is_local_host(hostname) else hostname
 
-    def spawn(self, hostname: str, start):
-        """``start(card) -> process`` with a free card of ``hostname``'s
-        machine; the card stays held while the process lives."""
+    def _limit(self, machine: str) -> int | None:
+        if machine != "localhost":
+            return None
+        if self._local_cards is None:
+            self._local_cards = _local_card_count() or 0
+        return self._local_cards or None
+
+    def _reserve(self, machine: str) -> int | None:
+        """A free card of ``machine``, now held; None where all are."""
         with self._mu:
-            held = self._held.setdefault(self.machine(hostname), {})
+            held = self._held.setdefault(machine, {})
             for card, proc in list(held.items()):
                 if proc is not None and proc.poll() is not None:
                     del held[card]
             card = next(c for c in itertools.count() if c not in held)
+            limit = self._limit(machine)
+            if limit is not None and card >= limit:
+                return None
             held[card] = None  # reserved while the worker starts
+            return card
+
+    def spawn(self, hostname: str, start, wait_s: float = 0.0):
+        """``start(card) -> process`` with a free card of ``hostname``'s
+        machine; the card stays held while the process lives. Where every
+        card of the machine is held (an elastic replacement spawned while
+        the worker it replaces drains in its grace window), wait up to
+        ``wait_s`` seconds for one to free (:func:`departure_wait_s`)."""
+        machine = self.machine(hostname)
+        deadline = time.monotonic() + wait_s
+        while (card := self._reserve(machine)) is None:
+            if time.monotonic() >= deadline:
+                raise RuntimeError(
+                    f"no free card on {machine} after {wait_s:g} s: "
+                    f"all {self._limit(machine)} are held by live workers")
+            time.sleep(0.05)
+        held = self._held[machine]
         try:
             proc = start(card)
         except BaseException:

@@ -9,7 +9,10 @@ convolutions use it by default, which would need a 1e-3-scale tolerance.
 :func:`pooling_errors` reads the average pool's backward on channels-last
 tensors. :func:`backward_overlap` reads from a ``torch.profiler`` trace
 whether the gradient allreduce's NCCL kernels ran while the backward pass's
-kernels did.
+kernels did. :func:`make_process_ray` and :func:`make_process_pyspark` stand
+in for the ``ray`` and ``pyspark`` packages with actors and barrier tasks
+that are child processes, so that the integrations run a world of NCCL or
+gloo ranks, one process each, where neither package is installed.
 """
 
 from __future__ import annotations
@@ -170,3 +173,406 @@ def backward_overlap(trace_path: str, marker: str = "backward") -> dict:
                 max(0.0, min(k["ts"] + k["dur"] - start, last_end)
                     - max(k["ts"] - start, 0.0)) for k in nccl),
             "overlap": None if first_nccl is None else first_nccl < last_end}
+
+
+# ---------------------------------------------------------------------------
+# Ray and Spark as child processes
+# ---------------------------------------------------------------------------
+#
+# Neither ``ray`` nor ``pyspark`` is installed where the port is tested. The
+# two stubs below stand in for them with the same contract as the real
+# packages in the respect that matters for a world above one rank: an actor,
+# or a barrier task, is a process of its own (``spawn`` context), so each
+# rank owns its process group and its card. What crosses a pipe is pickled
+# by name: classes and functions must be module-level.
+
+_STUB_DEFAULT_NODE = "127.0.0.1"
+
+
+class StubRayError(RuntimeError):
+    """An actor's call failed, or its process is gone."""
+
+
+class _Ref:
+    """One pending call's result (an ``ObjectRef``)."""
+
+    def __init__(self):
+        import threading
+        self.event = threading.Event()
+        self.ok = None
+        self.value = None
+
+    def resolve(self, ok: bool, value) -> None:
+        if not self.event.is_set():
+            self.ok, self.value = ok, value
+            self.event.set()
+
+
+def _stub_ray_child(node_ip: str, gpu_ids: list):
+    """The ``ray`` an actor's process imports: its node's address and the
+    GPUs it was given."""
+    import types
+    mod = types.ModuleType("ray")
+    mod.util = types.SimpleNamespace(get_node_ip_address=lambda: node_ip)
+    mod.is_initialized = lambda: True
+    mod.get_gpu_ids = lambda: list(gpu_ids)
+    return mod
+
+
+def _actor_main(conn, cls, args, kwargs, node_ip: str,
+                gpu_ids: list) -> None:
+    """An actor's process: make the instance, then serve its method calls
+    in order, one at a time, on the process's main thread. An actor given
+    GPUs sees only those, as under Ray (``CUDA_VISIBLE_DEVICES``, set
+    before anything here starts CUDA)."""
+    import os
+    import sys
+    if gpu_ids:
+        os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(map(str, gpu_ids))
+    sys.modules["ray"] = _stub_ray_child(node_ip, gpu_ids)
+    try:
+        instance = cls(*args, **kwargs)
+        failure = None
+    except BaseException as e:  # every call then reports it
+        instance, failure = None, e
+    while True:
+        try:
+            msg = conn.recv()
+        except (EOFError, OSError):
+            return
+        if msg is None:
+            return
+        call_id, name, a, kw = msg
+        try:
+            if failure is not None:
+                raise failure
+            reply = (call_id, True, getattr(instance, name)(*a, **kw))
+        except BaseException as e:
+            reply = (call_id, False, e)
+        try:
+            conn.send(reply)
+        except Exception as e:  # an unpicklable result or error
+            conn.send((call_id, False, StubRayError(
+                f"{name}: result not picklable ({e}): {reply[2]!r}")))
+
+
+class _ProcessActor:
+    """The parent's handle of one actor process."""
+
+    def __init__(self, cls, args, kwargs, node_ip: str, gpu_ids=()):
+        import itertools
+        import multiprocessing
+        import threading
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self.node_ip = node_ip
+        self.gpu_ids = list(gpu_ids)
+        self.process = ctx.Process(
+            target=_actor_main,
+            args=(child, cls, args, kwargs, node_ip, self.gpu_ids),
+            daemon=True, name=f"stub-ray-actor-{cls.__name__}")
+        self.process.start()
+        child.close()
+        self._ids = itertools.count()
+        self._pending: dict[int, _Ref] = {}
+        self._mu = threading.Lock()
+        self._send_mu = threading.Lock()
+        self._reader = threading.Thread(target=self._read, daemon=True,
+                                        name="stub-ray-reader")
+        self._reader.start()
+
+    def _read(self) -> None:
+        while True:
+            try:
+                call_id, ok, value = self._conn.recv()
+            except (EOFError, OSError):
+                break
+            with self._mu:
+                ref = self._pending.pop(call_id, None)
+            if ref is not None:
+                ref.resolve(ok, value)
+        self._fail_pending(StubRayError(
+            f"actor process {self.process.pid} ended"))
+
+    def _fail_pending(self, err) -> None:
+        with self._mu:
+            pending, self._pending = list(self._pending.values()), {}
+        for ref in pending:
+            ref.resolve(False, err)
+
+    def call(self, name: str, args, kwargs) -> _Ref:
+        ref = _Ref()
+        with self._mu:
+            call_id = next(self._ids)
+            self._pending[call_id] = ref
+        try:
+            with self._send_mu:
+                self._conn.send((call_id, name, args, kwargs))
+        except (OSError, ValueError) as e:
+            with self._mu:
+                self._pending.pop(call_id, None)
+            ref.resolve(False, StubRayError(f"actor is gone: {e}"))
+        return ref
+
+    def kill(self) -> None:
+        if self.process.is_alive():
+            self.process.terminate()
+        self.process.join(30)
+        if self.process.is_alive():
+            self.process.kill()
+            self.process.join(10)
+        self._conn.close()
+        self._fail_pending(StubRayError("actor killed"))
+
+
+class _ActorMethod:
+    def __init__(self, actor: _ProcessActor, name: str):
+        self._actor, self._name = actor, name
+
+    def remote(self, *args, **kwargs) -> _Ref:
+        return self._actor.call(self._name, args, kwargs)
+
+
+class _ActorHandle:
+    def __init__(self, actor: _ProcessActor):
+        self._actor = actor
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return _ActorMethod(self._actor, name)
+
+
+class _RemoteClass:
+    def __init__(self, ray, cls, opts=None):
+        self._ray, self._cls, self.opts = ray, cls, dict(opts or {})
+
+    def options(self, **opts) -> "_RemoteClass":
+        return _RemoteClass(self._ray, self._cls, {**self.opts, **opts})
+
+    def remote(self, *args, **kwargs) -> _ActorHandle:
+        node = _STUB_DEFAULT_NODE
+        for key in (self.opts.get("resources") or {}):
+            if key.startswith("node:"):
+                node = key[len("node:"):]
+        gpu_ids = self._ray.take_gpus(node, int(self.opts.get("num_gpus")
+                                                or 0))
+        actor = _ProcessActor(self._cls, args, kwargs, node, gpu_ids)
+        self._ray.actors.append(actor)
+        return _ActorHandle(actor)
+
+
+def make_process_ray(nodes: dict | None = None, gpus: int = 0):
+    """A stand-in for the ``ray`` module whose actors are processes.
+    ``nodes`` is the cluster (node address -> CPUs, 0 for a dead node;
+    default one node, ``127.0.0.1``, of one CPU), which ``ray.nodes()``
+    reports and a test may change; an actor runs on the node its
+    ``node:<address>`` resource names, else on ``127.0.0.1``. ``gpus`` is the
+    GPUs each node offers Ray: an actor that asks for ``num_gpus`` gets
+    the lowest ids no live actor of its node holds, and sees only those;
+    with none offered, an actor sees every card of its node. Install it
+    with ``sys.modules["ray"] = make_process_ray()``; ``ray.shutdown()``
+    ends every actor still running."""
+    import types
+    ray = types.ModuleType("ray")
+    ray.cluster = dict(nodes or {_STUB_DEFAULT_NODE: 1})
+    ray.gpus = int(gpus)
+    ray.actors = []
+    ray.util = types.SimpleNamespace(
+        get_node_ip_address=lambda: _STUB_DEFAULT_NODE)
+    ray.get_gpu_ids = lambda: []
+    ray.is_initialized = lambda: True
+
+    def take_gpus(node: str, count: int) -> list:
+        if count <= 0:
+            return []
+        held = {i for a in ray.actors if a.node_ip == node
+                and a.process.is_alive() for i in a.gpu_ids}
+        free = [i for i in range(ray.gpus) if i not in held]
+        if len(free) < count:
+            raise StubRayError(f"{count} GPU(s) asked of node {node}, "
+                               f"{len(free)} free of {ray.gpus}")
+        return free[:count]
+
+    ray.take_gpus = take_gpus
+    ray.init = lambda *a, **k: None
+    ray.remote = lambda cls: _RemoteClass(ray, cls)
+
+    def get(refs):
+        if isinstance(refs, list):
+            return [get(r) for r in refs]
+        refs.event.wait()
+        if not refs.ok:
+            raise refs.value
+        return refs.value
+
+    def wait(refs, timeout=None):
+        import time
+        deadline = None if timeout is None else time.monotonic() + timeout
+        done = []
+        for ref in refs:
+            left = (None if deadline is None
+                    else max(0.0, deadline - time.monotonic()))
+            if ref.event.wait(left):
+                done.append(ref)
+        return done, [r for r in refs if r not in done]
+
+    def kill(handle) -> None:
+        handle._actor.kill()
+
+    def shutdown() -> None:
+        for actor in ray.actors:
+            actor.kill()
+        ray.actors.clear()
+
+    ray.get, ray.wait, ray.kill, ray.shutdown = get, wait, kill, shutdown
+    ray.nodes = lambda: [
+        {"NodeManagerAddress": ip, "Alive": cpus > 0,
+         "Resources": {"CPU": float(cpus),
+                       **({"GPU": float(ray.gpus)} if ray.gpus else {})}}
+        for ip, cpus in ray.cluster.items()]
+    return ray
+
+
+class _BarrierTaskContext:
+    """A task process's ``BarrierTaskContext``: ``allGather`` goes over
+    the task's pipe to the parent, which answers once every task sent."""
+
+    _current = None
+
+    def __init__(self, rank: int, conn):
+        self._rank, self._conn = rank, conn
+
+    @classmethod
+    def get(cls):
+        return cls._current
+
+    def partitionId(self) -> int:
+        return self._rank
+
+    def allGather(self, message: str = "") -> list:
+        self._conn.send(("gather", message))
+        return self._conn.recv()
+
+
+def _task_main(conn, task, rank: int) -> None:
+    """A barrier task's process."""
+    import sys
+    import types
+    mod = types.ModuleType("pyspark")
+    mod.BarrierTaskContext = _BarrierTaskContext
+    sys.modules["pyspark"] = mod
+    _BarrierTaskContext._current = _BarrierTaskContext(rank, conn)
+    try:
+        reply = ("result", True, list(task(iter(()))))
+    except BaseException as e:
+        reply = ("result", False, e)
+    try:
+        conn.send(reply)
+    except Exception as e:
+        conn.send(("result", False, RuntimeError(
+            f"task {rank}: result not picklable ({e})")))
+
+
+class _ProcessRDD:
+    def __init__(self, sc, n: int):
+        self._sc, self.n, self._task = sc, n, None
+
+    def barrier(self):
+        return self
+
+    def mapPartitions(self, task):
+        self._task = task
+        return self
+
+    def collect(self) -> list:
+        import multiprocessing
+        from multiprocessing.connection import wait
+        ctx = multiprocessing.get_context("spawn")
+        conns, procs = [], []
+        for rank in range(self.n):
+            parent, child = ctx.Pipe()
+            proc = ctx.Process(target=_task_main,
+                               args=(child, self._task, rank), daemon=True,
+                               name=f"stub-spark-task-{rank}")
+            proc.start()
+            child.close()
+            conns.append(parent)
+            procs.append(proc)
+        self._sc.tasks = procs
+        gathered: dict[int, str] = {}
+        results: dict[int, tuple] = {}
+        try:
+            while len(results) < self.n:
+                live = [c for r, c in enumerate(conns) if r not in results]
+                for conn in wait(live, timeout=1.0):
+                    rank = conns.index(conn)
+                    try:
+                        msg = conn.recv()
+                    except (EOFError, OSError):
+                        results[rank] = (False, RuntimeError(
+                            f"barrier task {rank} ended "
+                            f"(exit code {procs[rank].exitcode})"))
+                        continue
+                    if msg[0] == "gather":
+                        gathered[rank] = msg[1]
+                        if len(gathered) == self.n:
+                            everyone = [gathered[r] for r in range(self.n)]
+                            for c in conns:
+                                c.send(everyone)
+                            gathered = {}
+                    else:
+                        results[rank] = msg[1:]
+                if self._sc.cancelled_all:
+                    raise RuntimeError("the job group was cancelled")
+        finally:
+            for proc in procs:
+                proc.join(30)
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join(10)
+            for conn in conns:
+                conn.close()
+        out = []
+        for rank in range(self.n):
+            ok, value = results[rank]
+            if not ok:
+                raise value
+            out.extend(value)
+        return out
+
+
+class _ProcessSparkContext:
+    def __init__(self, default_parallelism: int):
+        self.defaultParallelism = default_parallelism
+        self.cancelled: list = []
+        self.cancelled_all = False
+        self.tasks: list = []
+
+    def setJobGroup(self, group, description, interruptOnCancel=False):
+        self.group = group
+
+    def cancelJobGroup(self, group) -> None:
+        self.cancelled.append(group)
+        self.cancelled_all = True
+        for proc in self.tasks:
+            if proc.is_alive():
+                proc.terminate()
+
+    def parallelize(self, data, n: int) -> _ProcessRDD:
+        return _ProcessRDD(self, n)
+
+
+def make_process_pyspark(default_parallelism: int = 1):
+    """A stand-in for the ``pyspark`` module whose barrier tasks are
+    processes: ``SparkContext._active_spark_context`` is live, and
+    ``collect()`` of a barrier ``mapPartitions`` starts one process a task,
+    answers their ``allGather`` rounds and returns their results in task
+    order. Install it with ``sys.modules["pyspark"] =
+    make_process_pyspark()``."""
+    import types
+    mod = types.ModuleType("pyspark")
+    mod.SparkContext = types.SimpleNamespace(
+        _active_spark_context=_ProcessSparkContext(default_parallelism))
+    mod.BarrierTaskContext = _BarrierTaskContext
+    return mod

@@ -54,6 +54,19 @@ ELASTIC_ROUND = "ELASTIC_ROUND"  # the round a worker runs in
 ELASTIC_TIMEOUT = "ELASTIC_TIMEOUT"  # s to wait for slots or a next round
 ELASTIC_GRACE = "ELASTIC_GRACE"  # s a slot-removed worker gets to exit (0: kill)
 ELASTIC_WARM = "ELASTIC_WARM"  # auto|1|0: plans and cache entries survive a re-form
+# The closed-loop autoscale policy (elastic/policy.py)
+AUTOSCALE = "AUTOSCALE"  # the driver-side policy (0 = scripted/manual churn only)
+AUTOSCALE_SLO_MS = "AUTOSCALE_SLO_MS"  # step-time SLO; 0 = breach/idle rules off (evict only)
+AUTOSCALE_INTERVAL = "AUTOSCALE_INTERVAL"  # s per policy evaluation window
+AUTOSCALE_BREACH_WINDOWS = "AUTOSCALE_BREACH_WINDOWS"  # breach windows in a row before a scale-up
+AUTOSCALE_IDLE_WINDOWS = "AUTOSCALE_IDLE_WINDOWS"  # idle windows in a row before a graceful scale-down
+AUTOSCALE_EVICT_WINDOWS = "AUTOSCALE_EVICT_WINDOWS"  # windows blaming one straggler before eviction
+AUTOSCALE_COOLDOWN = "AUTOSCALE_COOLDOWN"  # s after a membership decision before the next
+AUTOSCALE_MIN = "AUTOSCALE_MIN"  # world floor (default: the driver's min_np)
+AUTOSCALE_MAX = "AUTOSCALE_MAX"  # world ceiling (default: the driver's max_np)
+AUTOSCALE_GRACE = "AUTOSCALE_GRACE"  # s of slot-lost grace a policy departure gets
+AUTOSCALE_IDLE_FACTOR = "AUTOSCALE_IDLE_FACTOR"  # share of the SLO under which a window is idle
+SPARK_START_TIMEOUT = "SPARK_START_TIMEOUT"  # s Spark's barrier tasks may take to start
 STALL_CHECK_DISABLE = "STALL_CHECK_DISABLE"
 STALL_CHECK_TIME_SECONDS = "STALL_CHECK_TIME_SECONDS"  # warn after (60 s)
 STALL_SHUTDOWN_TIME_SECONDS = "STALL_SHUTDOWN_TIME_SECONDS"  # 0: never
@@ -285,6 +298,36 @@ DEFAULT_CONFORMANCE_RING = 256
 # 8; the coordinator ResponseCache is on by default where the hierarchy is.
 DEFAULT_NEGOTIATION_GROUP_SIZE = 8
 DEFAULT_RESPONSE_CACHE_CAPACITY = 1024
+
+
+# The autoscale policy's defaults (the JAX package's): a window every 2 s,
+# 3 breach windows before a scale-up, 5 idle windows before a scale-down
+# (shrinking costs a re-form), 3 blame windows before an eviction, and a
+# 15 s cooldown, so that one decision's own disruption never reads as the
+# next window's signal.
+DEFAULT_AUTOSCALE_INTERVAL_S = 2.0
+DEFAULT_AUTOSCALE_BREACH_WINDOWS = 3
+DEFAULT_AUTOSCALE_IDLE_WINDOWS = 5
+DEFAULT_AUTOSCALE_EVICT_WINDOWS = 3
+DEFAULT_AUTOSCALE_COOLDOWN_S = 15.0
+DEFAULT_AUTOSCALE_GRACE_S = 30.0
+DEFAULT_AUTOSCALE_IDLE_FACTOR = 0.5
+
+
+def autoscale_enabled() -> bool:
+    """``HVD_AUTOSCALE``: the driver-side policy chooses ``add``,
+    ``remove`` and ``evict`` from the workers' sensors. Off by default."""
+    return get_bool(AUTOSCALE, False)
+
+
+def autoscale_slo_s() -> float:
+    """The step-time SLO in seconds (the knob is in ms); 0 turns the
+    breach and idle rules off, leaving eviction."""
+    return get_float(AUTOSCALE_SLO_MS, 0.0) / 1e3
+
+
+def autoscale_interval_s() -> float:
+    return get_float(AUTOSCALE_INTERVAL, DEFAULT_AUTOSCALE_INTERVAL_S)
 
 
 def health_interval_s() -> float:

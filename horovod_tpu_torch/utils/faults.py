@@ -16,8 +16,10 @@ a chaos test reproduces the same faults on every run. The grammar
 * **site**: ``kv.put``, ``kv.get``, ``kv.delete``, ``kv.gather`` (the
   ``KVClient`` verbs), ``svc.submit`` (a negotiated collective's
   submission), ``svc.exchange`` (one negotiation round), ``worker`` (an
-  elastic ``State.commit``) and ``worker.launch`` (the elastic driver
-  spawning a worker); a trailing ``*`` matches a prefix (``kv.*``).
+  elastic ``State.commit``), ``worker.launch`` (the elastic driver
+  spawning a worker) and ``policy.eval`` (one evaluation window of the
+  autoscale policy, where an error must give a counted ``hold``, never a
+  failed job); a trailing ``*`` matches a prefix (``kv.*``).
 * **action**: ``error`` (raise :class:`FaultInjected`), ``crash``
   (``os._exit``, code ``code=N``, default 1), ``delay=<seconds>``, or, at
   the ``worker`` site only, a **membership action** of elastic churn:

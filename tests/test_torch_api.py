@@ -40,9 +40,9 @@ def test_all_lists_are_equal_up_to_the_intended_omissions():
         assert hasattr(thvd, name), name
 
 
-# names of horovod_tpu.elastic the port leaves out until the autoscale
-# policy is ported (ROADMAP A14b), and TorchState in place of JaxState
-ELASTIC_OMISSIONS = {"AutoscalePolicy", "PolicyEvalError", "JaxState"}
+# the name of horovod_tpu.elastic the port leaves out: TorchState takes
+# JaxState's place
+ELASTIC_OMISSIONS = {"JaxState"}
 ELASTIC_PORT_ONLY = {"TorchState", "ElasticSampler", "NOTIFY_KEY"}
 
 

@@ -1757,6 +1757,299 @@ def test_cuda_nccl_world4_launch_long_context_twin_ulysses(four_cards,
     print([line for line in out.splitlines() if "[0]<stdout>" in line][-3:])
 
 
+# --------------------------------------------------------------------------
+# The autoscale policy and the Ray executor on cards
+# --------------------------------------------------------------------------
+
+# The closed loop. A commit copies the trainer's 557 MB state to the host
+# (0.29-0.39 s, PERF.md), so an idle step takes about 0.3-0.45 s: with the SLO
+# at 3 s and idle under 0.5 x SLO = 1.5 s, an idle step has a 3.3x margin;
+# the busy phase's offered load of 20 s (the JAX test's model: the load
+# shared by the world, 10 s a step at 2) has 3.3x over the SLO. The remove
+# is the policy's first action, so no recovery has been measured and the
+# restore-cost brake lets it through; its windows (3 x 2 s) would exceed
+# the 0.6-1.06 s re-form measured at world 1 (PERF.md) as well.
+AUTOSCALE_CARD_ENV = {
+    "HVD_AUTOSCALE": "1", "HVD_AUTOSCALE_SLO_MS": "3000",
+    "HVD_AUTOSCALE_INTERVAL": "2", "HVD_AUTOSCALE_IDLE_WINDOWS": "3",
+    "HVD_AUTOSCALE_BREACH_WINDOWS": "2", "HVD_AUTOSCALE_IDLE_FACTOR": "0.5",
+    "HVD_AUTOSCALE_COOLDOWN": "4", "HVD_AUTOSCALE_GRACE": "120"}
+BUSY_LOAD_S, TAIL_STEPS, CARD_MAX_STEPS = 20.0, 3, 400
+# Evict and replace: rank 2 of round 1 submits each negotiation round 0.4 s
+# late, 4x the straggler threshold; the SLO is 0, so the breach and idle
+# rules are off and eviction alone acts.
+EVICT_CARD_ENV = {
+    "HVD_AUTOSCALE": "1", "HVD_AUTOSCALE_SLO_MS": "0",
+    "HVD_AUTOSCALE_INTERVAL": "1", "HVD_AUTOSCALE_EVICT_WINDOWS": "2",
+    "HVD_AUTOSCALE_COOLDOWN": "4", "HVD_AUTOSCALE_GRACE": "120",
+    "HVD_RESPONSE_CACHE": "0", "HVD_STRAGGLER_THRESHOLD": "0.1",
+    "HVD_FAULT_SPEC": "svc.exchange:delay=0.4:rank=2:at_round=1"}
+
+
+def _card_autoscale_rank(out_dir: str, scenario: str) -> None:
+    """A worker of the four-card autoscale tests: the trainer at full width
+    (2 x 2048 tokens a rank) under ``TorchState``, committing every step.
+    ``loop``: idle (no added load) until the world shrinks, then busy
+    (``BUSY_LOAD_S / world`` seconds a step) until it grows back, then
+    ``TAIL_STEPS`` idle steps. ``evict``: train until a round after the
+    first has run ``TAIL_STEPS`` steps. Each commit and (re-)entry is
+    logged with the world, the card and a digest of the parameters."""
+    import hashlib
+    from horovod_tpu_torch import elastic, metrics
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import (TransformerConfig, TransformerLM,
+                                          lm_loss)
+
+    hvd.init()
+    dev = hvd.device()
+    cfg = TransformerConfig(attn_mode="ulysses")
+    model = TransformerLM(cfg, device=dev)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-3))
+    state = elastic.TorchState(model=model, optimizer=opt, step=0,
+                               phase="idle", tail_from=-1)
+    log = open(os.path.join(out_dir, f"worker{os.getpid()}.jsonl"), "a")
+
+    def record(kind):
+        h = hashlib.sha256()
+        for p in model.parameters():
+            h.update(p.detach().contiguous().view(torch.uint8).cpu()
+                     .numpy().tobytes())
+        log.write(json.dumps({
+            "kind": kind, "round": int(os.environ["HVD_ELASTIC_ROUND"]),
+            "rank": hvd.rank(), "size": hvd.size(), "step": state.step,
+            "phase": state.phase, "card": str(hvd.device()),
+            "host": os.environ.get("HVD_HOSTNAME"), "sha": h.hexdigest(),
+            "lost": metrics.ELASTIC_STEPS_LOST.value(),
+            "t": time.time()}) + "\n")
+        log.flush()
+
+    save = state.save
+
+    def recorded_save():
+        save()
+        record("commit")
+
+    state.save = recorded_save
+
+    @elastic.run
+    def train(state):
+        record("entered")
+        entered, rnd = state.step, int(os.environ["HVD_ELASTIC_ROUND"])
+        while state.step < CARD_MAX_STEPS:
+            size = hvd.size()
+            if scenario == "evict":
+                if rnd > 1 and state.step >= entered + TAIL_STEPS:
+                    break
+            else:
+                if state.phase == "idle" and size < 4:
+                    state.phase = "busy"
+                elif state.phase == "busy" and size == 4:
+                    state.phase, state.tail_from = "tail", state.step
+                if state.phase == "tail" \
+                        and state.step >= state.tail_from + TAIL_STEPS:
+                    break
+            rng = np.random.default_rng(1000 * state.step + hvd.rank())
+            tokens = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, size=(2, 2048))).to(dev)
+            opt.zero_grad()
+            lm_loss(model(tokens), tokens).backward()
+            opt.step()
+            if state.phase == "busy":
+                time.sleep(BUSY_LOAD_S / size)
+            state.step += 1
+            state.commit()
+
+    train(state)
+    record("done")
+    hvd.shutdown()
+
+
+def _autoscale_job(tmp_path, scenario: str, env: dict, readmit=None):
+    """``start_elastic`` of :func:`_card_autoscale_rank` over
+    ``-H localhost:2,127.0.0.1:2 --min-np 2 --max-np 4`` in this process
+    (its driver and policy here); ``readmit`` (host, slots) is entered
+    among the hosts taken out earlier, for the policy to bring back.
+    Returns the policy's decisions and the workers' records."""
+    from horovod_tpu_torch.elastic import launch as elastic_launch
+    from horovod_tpu_torch.runner import launch as launch_mod
+    env = {**env, "HVD_PROCESS_GROUP_TIMEOUT": "120",
+           "PYTHONFAULTHANDLER": "1"}
+    args = launch_mod.parse_args(
+        ["-np", "4", "--min-np", "2", "--max-np", "4",
+         "-H", "localhost:2,127.0.0.1:2",
+         *[a for k, v in env.items() for a in ("--env", f"{k}={v}")],
+         "--", sys.executable, str(Path(__file__).resolve()),
+         "--autoscale-rank", str(tmp_path), scenario])
+    saved = os.environ.get("HVD_ELASTIC_TIMEOUT")
+    os.environ["HVD_ELASTIC_TIMEOUT"] = "600"  # the driver's
+    try:
+        job = elastic_launch.start_elastic(args, args.command[1:])
+        assert job.policy is not None
+        if readmit:
+            hosts = job.policy.hosts
+            with hosts._mu:
+                hosts._removed.append(readmit)
+        rc = job.wait()
+    finally:
+        if saved is None:
+            del os.environ["HVD_ELASTIC_TIMEOUT"]
+        else:
+            os.environ["HVD_ELASTIC_TIMEOUT"] = saved
+    decisions = job.policy.policy_stats()["decisions"]
+    recs = [json.loads(line) for f in sorted(tmp_path.glob("worker*.jsonl"))
+            for line in f.read_text().splitlines()]
+    print("decisions:", [(d["action"], d["reason"], d["rank"], d["detail"])
+                         for d in decisions])
+    assert rc == 0, rc
+    return decisions, recs
+
+
+def _check_reforms(recs):
+    """Every rank of every round entered bitwise at the last commit of the
+    round before, on a card of its own; no committed step replays; no
+    step lost; the ranks done bitwise equal."""
+    rounds = sorted({r["round"] for r in recs})
+    commits = {}
+    for r in recs:
+        if r["kind"] == "commit" and r["rank"] == 0:
+            commits.setdefault(r["round"], []).append((r["step"], r["sha"]))
+    steps = [s for rnd in rounds for s, _ in commits.get(rnd, [])]
+    assert steps == list(range(1, len(steps) + 1)), steps  # no replay
+    for rnd in rounds[1:]:
+        entered = [r for r in recs if r["kind"] == "entered"
+                   and r["round"] == rnd]
+        last_step, last_sha = commits[rnd - 1][-1]
+        assert {r["step"] for r in entered} == {last_step}, (rnd, entered)
+        assert {r["sha"] for r in entered} == {last_sha}
+        assert len({r["card"] for r in entered}) == len(entered)
+        took = max(r["t"] for r in entered) - max(
+            r["t"] for r in recs if r["kind"] == "commit"
+            and r["round"] == rnd - 1)
+        print(f"round {rnd}: world {entered[0]['size']}, entered at step "
+              f"{last_step} bitwise its last commit, {took:.1f} s after it; "
+              f"cards {sorted(r['card'] for r in entered)}, hosts "
+              f"{sorted(r['host'] for r in entered)}")
+    done = [r for r in recs if r["kind"] == "done"]
+    assert len(done) == 4 and len({r["sha"] for r in done}) == 1
+    assert all(r["lost"] == 0 for r in recs)
+    return rounds
+
+
+@pytest.mark.cuda
+def test_cuda_world1_broadcast_optimizer_state_of_adam(cuda_world):
+    """Torch's Adam keeps its step count on the host beside moments on the
+    card; ``broadcast_optimizer_state`` takes both (the estimator's resume
+    does, ``spark/estimator.py``)."""
+    import horovod_tpu_torch as hvd
+    model = torch.nn.Linear(8, 4).to(cuda_world)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    model(torch.ones(2, 8, device=cuda_world)).sum().backward()
+    opt.step()
+    state = opt.state[model.weight]
+    assert state["step"].device.type == "cpu"
+    assert state["exp_avg"].device.type == "cuda"
+    before = {k: v.clone() for k, v in state.items()}
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    for k, v in state.items():
+        assert v.device == before[k].device and torch.equal(v, before[k])
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_autoscale_closed_loop(four_cards, tmp_path):
+    """The closed loop on four cards: an idle load makes the policy remove
+    the host of the highest ranks gracefully (4 -> 2), a load past the SLO
+    makes it re-admit that host (2 -> 4); one ``remove/idle`` and one
+    ``add/slo-breach`` (at most one more decision), no step lost, no
+    committed step replayed, the ranks bitwise equal at the end."""
+    decisions, recs = _autoscale_job(tmp_path, "loop", AUTOSCALE_CARD_ENV)
+    acts = [d for d in decisions if d["action"] != "hold"]
+    assert [(d["action"], d["reason"]) for d in acts[:2]] == [
+        ("remove", "idle"), ("add", "slo-breach")], acts
+    assert len(acts) <= 3, acts
+    gone = acts[0]["detail"].split()[0][1:]
+    assert acts[1]["detail"].startswith(f"+{gone} "), acts
+    rounds = _check_reforms(recs)
+    sizes = [{r["size"] for r in recs if r["round"] == rnd}
+             for rnd in rounds]
+    assert sizes[:3] == [{4}, {2}, {4}], sizes
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world4_autoscale_evicts_and_replaces(four_cards,
+                                                        tmp_path):
+    """A straggler on four cards: rank 2 of round 1 submits every
+    negotiation round late; the policy evicts its host (``evict/straggler``
+    naming rank 2) and brings back the machine's own name, entered here
+    as a host of two slots taken out earlier (``CardPool.machine`` maps it
+    to this machine's cards), whose workers wait for the cards the victims
+    free; the world is back at 4 with no step lost."""
+    import socket
+    own_name = socket.gethostname()
+    decisions, recs = _autoscale_job(tmp_path, "evict", EVICT_CARD_ENV,
+                                     readmit=(own_name, 2))
+    acts = [d for d in decisions if d["action"] != "hold"]
+    assert acts and (acts[0]["action"], acts[0]["reason"],
+                     acts[0]["rank"]) == ("evict", "straggler", 2), acts
+    victim = acts[0]["detail"].split()[0][1:]
+    assert acts[0]["detail"] == f"-{victim} +{own_name}", acts
+    rounds = _check_reforms(recs)
+    assert rounds[:2] == [1, 2]
+    second = [r for r in recs if r["kind"] == "entered" and r["round"] == 2]
+    assert sorted(r["rank"] for r in second) == [0, 1, 2, 3]
+    assert sorted(r["card"] for r in second) == [f"cuda:{i}"
+                                                 for i in range(4)]
+    assert victim not in {r["host"] for r in second}
+    assert sum(r["host"] == own_name for r in second) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gpus", [0, 4], ids=["cards-from-pool",
+                                              "gpus-from-ray"])
+def test_cuda_nccl_world4_ray_executor_trainer(four_cards, tmp_path,
+                                               monkeypatch, gpus):
+    """``RayExecutor(num_workers=4)`` over ``testing.make_process_ray`` (an
+    actor is a child process): the trainer (chip_smoke.py's ``[launch]``
+    worker) on four cards, every rank's losses and parameters bitwise rank
+    0's. Where the cluster offers Ray no GPUs, each actor sees every card
+    and drives cards 0-3 from the executor's card pool; where it offers
+    four, each actor asks for one and sees only the GPU Ray gave it."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from horovod_tpu_torch import testing
+    ray = testing.make_process_ray({"127.0.0.1": 4}, gpus=gpus)
+    monkeypatch.setitem(sys.modules, "ray", ray)
+    from horovod_tpu_torch.ray import RayExecutor
+    ex = RayExecutor(num_workers=4)
+    ex.start()
+    try:
+        ranks = ex.run(chip_smoke.returning_trainer_worker,
+                       args=(str(tmp_path / "rank{rank}.json"),))
+    finally:
+        ex.shutdown()
+        ray.shutdown()
+    assert [r["rank"] for r in ranks] == [0, 1, 2, 3]
+    if gpus:
+        assert [r["env"]["HVD_CUDA_DEVICE"] for r in ranks] == ["0"] * 4
+        assert sorted(r["env"]["CUDA_VISIBLE_DEVICES"] for r in ranks) == \
+            ["0", "1", "2", "3"]
+    else:
+        assert sorted(r["env"]["HVD_CUDA_DEVICE"] for r in ranks) == \
+            ["0", "1", "2", "3"]
+    assert len({r["card_uuid"] for r in ranks}) == 4
+    for r in ranks:
+        assert (r["world"], r["backend"]) == (4, "nccl")
+        assert r["losses"] == ranks[0]["losses"]
+        assert r["params_sha256"] == ranks[0]["params_sha256"]
+        assert set(r["launches"].values()) == {r["layers"] * 5}
+    assert ranks[0]["losses"][-1] < ranks[0]["losses"][0]
+    print(f"four-card RayExecutor ({'Ray' if gpus else 'the pool'} gives "
+          f"the cards): losses {ranks[0]['losses']}")
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "--elastic-rank":
         _card_elastic_rank(sys.argv[2])
+    elif sys.argv[1] == "--autoscale-rank":
+        _card_autoscale_rank(sys.argv[2], sys.argv[3])

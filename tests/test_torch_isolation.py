@@ -65,6 +65,47 @@ SLICE12 = ["runner/__init__.py", "runner/hosts.py", "runner/config_parser.py",
            "examples/elastic_train.py"]
 
 
+# The modules of the autoscale, Ray and Spark slice.
+SLICE13 = ["elastic/policy.py", "elastic/state.py", "elastic/launch.py",
+           "elastic/discovery.py", "elastic/__init__.py", "utils/envs.py",
+           "metrics.py", "health.py", "utils/faults.py", "runner/launch.py",
+           "ray/__init__.py", "ray/runner.py", "ray/elastic.py",
+           "spark/__init__.py", "spark/estimator.py", "testing.py",
+           "examples/ray_train.py", "examples/spark_train.py",
+           "examples/spark_estimator.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE13)
+def test_slice13_module_is_a_port_file(rel):
+    path = REPO / "horovod_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+
+
+def test_slice13_import_starts_nothing_and_leaves_jax_out(tmp_path):
+    """Importing the autoscale policy, the Ray and Spark integrations, the
+    process stubs and the three twins imports no JAX and neither ``ray``
+    nor ``pyspark``, starts no thread or process and writes no file."""
+    code = ("import sys, threading, horovod_tpu_torch, "
+            "horovod_tpu_torch.elastic.policy, horovod_tpu_torch.ray, "
+            "horovod_tpu_torch.ray.runner, horovod_tpu_torch.ray.elastic, "
+            "horovod_tpu_torch.spark, horovod_tpu_torch.spark.estimator, "
+            "horovod_tpu_torch.testing, "
+            "horovod_tpu_torch.examples.ray_train, "
+            "horovod_tpu_torch.examples.spark_train, "
+            "horovod_tpu_torch.examples.spark_estimator; "
+            "bad = sorted(x for x in sys.modules if x.split('.')[0] in "
+            f"{FORBIDDEN + ('ray', 'pyspark')!r}); "
+            "extra = [th.name for th in threading.enumerate() "
+            "if th is not threading.main_thread()]; "
+            "print(bad, extra); sys.exit(1 if bad or extra else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert list(tmp_path.iterdir()) == []
+
+
 @pytest.mark.parametrize("rel", SLICE12)
 def test_slice12_module_is_a_port_file(rel):
     path = REPO / "horovod_tpu_torch" / rel
