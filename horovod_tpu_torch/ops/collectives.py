@@ -158,8 +158,9 @@ def _fusion_layout(tensors, wire_dtypes=None, out_dtypes=None) -> list:
 def _pack(tensors, layout):
     """The wire buffers of ``layout`` (:func:`_fusion_layout`) over
     ``tensors``, and their metas."""
-    bufs = [torch.cat([tensors[i].reshape(-1).to(dt) for i in meta[0]])
-            for dt, meta in layout]
+    with timeline.pipeline_stage("PACK"):
+        bufs = [torch.cat([tensors[i].reshape(-1).to(dt) for i in meta[0]])
+                for dt, meta in layout]
     return bufs, [meta for _, meta in layout]
 
 
@@ -181,21 +182,36 @@ def _split_fused(bufs, metas, count: int) -> list:
 class Handle:
     """Completion handle of an ``*_async`` collective. ``synchronize()``
     waits for the collective (on the card: orders the current stream after
-    it), applies the postscale, unpacks, and caches the result."""
+    it), applies the postscale, unpacks, and caches the result;
+    :meth:`wait` does the wait alone."""
 
     def __init__(self, works=(), finish=None, result=None):
         self._works = list(works)
         self._finish = finish
         self._result = result
         self._done = finish is None
+        self._waited = False
         self._lock = threading.Lock()
+
+    def _wait_locked(self) -> None:
+        if not self._waited:
+            for w in self._works:
+                w.wait()
+            self._waited = True
+
+    def wait(self) -> None:
+        """Wait for the collective as :meth:`synchronize` does, leaving
+        the unpack to it."""
+        if not self._done:
+            with self._lock:
+                if not self._done:
+                    self._wait_locked()
 
     def synchronize(self):
         if not self._done:
             with self._lock:  # the entries of one flush share a handle
                 if not self._done:
-                    for w in self._works:
-                        w.wait()
+                    self._wait_locked()
                     self._result = self._finish()
                     self._done = True
                     self._works, self._finish = [], None
@@ -237,6 +253,9 @@ class _Then(Handle):
     def poll(self) -> bool:
         return self._done or self._parent.poll()
 
+    def wait(self) -> None:
+        self._parent.wait()
+
     def issue(self) -> None:
         self._parent.issue()
 
@@ -256,6 +275,11 @@ class _QueuedHandle(Handle):
     def _land(self):
         results = fusion_cycle.scheduler().wait_result(self._entry)
         return list(results) if self._entry.grouped else results[0]
+
+    def wait(self) -> None:
+        if not self._done:
+            fusion_cycle.scheduler().wait_issued_entry(self._entry)
+            self._entry.results.wait()
 
     def poll(self) -> bool:
         return self._done or fusion_cycle.scheduler().poll_entry(self._entry)
@@ -295,6 +319,11 @@ class _Negotiated(Handle):
     def _land(self):
         self.issue()
         return self._item.result.synchronize()
+
+    def wait(self) -> None:
+        if not self._done:
+            self.issue()
+            self._item.result.wait()
 
     def issue(self) -> None:
         """Issue the collective, waiting for its plan, with every queued

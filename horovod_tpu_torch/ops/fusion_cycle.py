@@ -208,6 +208,9 @@ class _Part:
     def get(self) -> list:
         return list(self.handle.synchronize()[self.lo:self.hi])
 
+    def wait(self) -> None:
+        self.handle.wait()
+
     def poll(self) -> bool:
         return self.handle.poll()
 
@@ -623,12 +626,18 @@ class FusionScheduler:
         """Synchronize path: flush the entry's queue if it is still
         pending, wait for its issue and its collective, re-raise a
         failure."""
+        self.wait_issued_entry(entry)
+        return entry.results.get()
+
+    def wait_issued_entry(self, entry: _Entry) -> None:
+        """:meth:`wait_result` up to the entry's issue: flush its queue if
+        it is still pending, wait until it was issued, re-raise a
+        failure."""
         self.flush_entry(entry, "synchronize")
         entry.event.wait()
         self._qos_ack(entry)
         if entry.error is not None:
             raise entry.error
-        return entry.results.get()
 
     def poll_entry(self, entry: _Entry) -> bool:
         """Poll path: an unflushed entry first triggers its own flush;
@@ -831,6 +840,7 @@ class FusionScheduler:
 
     def _execute(self, spec: _QueueSpec, entries: list[_Entry]) -> None:
         with _inv.section("fusion-cycle-flush"), \
+                _timeline.pipeline_stage("ISSUE"), \
                 _dispatch_cache.dispatch_source("flush"):
             cuda = [e.ready for e in entries if e.ready is not None]
             if not cuda:

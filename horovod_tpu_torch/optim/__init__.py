@@ -60,7 +60,7 @@ import weakref
 
 import torch
 
-from .. import runtime
+from .. import runtime, timeline
 from ..ops import collectives, fusion_cycle, gspmd_cache, step_capture
 from ..ops import sparse as sparse_ops
 from ..ops.compression import Compression, Compressor
@@ -264,6 +264,12 @@ class DistributedOptimizer:
         return (acc + (g.float() - acc) / self._k).to(p.dtype)
 
     def _start(self, b: int) -> None:
+        with timeline.span(timeline.OPTIMIZER_LANE, "BUCKET_START"):
+            self._hand_off(b)
+
+    def _hand_off(self, b: int) -> None:
+        """Gather bucket ``b``'s gradients and hand them to the fusion
+        cycle (or issue them at once), and issue the bucket before it."""
         grads = [self._grad(self._dense[i]) for i in self._buckets[b]]
         h = None
         # mesh_spec's composed reducer issues at once, and so does every
@@ -346,8 +352,12 @@ class DistributedOptimizer:
             self.stats["started_in_backward"].append(self._in_backward)
             try:
                 for idxs, h in zip(self._buckets, self._handles):
-                    for i, r in zip(idxs, h.synchronize()):
-                        _set_grad(self._dense[i], r)
+                    with timeline.span(timeline.OPTIMIZER_LANE, "SYNC_WAIT"):
+                        h.wait()
+                    with timeline.span(timeline.OPTIMIZER_LANE,
+                                       "SYNC_UNPACK"):
+                        for i, r in zip(idxs, h.synchronize()):
+                            _set_grad(self._dense[i], r)
             finally:
                 if self._region is not None:
                     region, self._region = self._region, None
@@ -369,7 +379,8 @@ class DistributedOptimizer:
         self._synced = False
         self._micro = 0
         self._acc = {}
-        return self.optimizer.step(closure)
+        with timeline.span(timeline.OPTIMIZER_LANE, "OPTIMIZER_STEP"):
+            return self.optimizer.step(closure)
 
 
 def _set_grad(p, r) -> None:

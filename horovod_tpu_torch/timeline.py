@@ -10,24 +10,38 @@ over a bounded queue, one lane per tensor name), bound through
   (``engine_service.py``), served requests included;
 * one range per eager collective (``ALLREDUCE``, ``GROUPED_ALLREDUCE``,
   ``ALLGATHER``, ``BROADCAST``, ``GROUPED_BROADCAST``, ``ALLTOALL``,
-  ``REDUCESCATTER``) around its issue (:class:`op_range`);
+  ``REDUCESCATTER``) around its issue;
+* on the ``optimizer`` lane, ranges at the gradient sync's boundaries
+  (``optim/__init__.py``): ``BUCKET_START`` (a bucket's gather, enqueue
+  and hand-off), ``SYNC_WAIT`` and ``SYNC_UNPACK`` (``synchronize()``'s
+  wait for a bucket and its unpack into ``.grad``) and ``OPTIMIZER_STEP``
+  (the wrapped optimizer's step);
 * instants on the ``health`` lane (``RETRY``, ``PEER_DEAD``, ``POISON``,
   ``STRAGGLER``, ``RC_JOIN_RACE``) and, with ``HVD_TIMELINE_MARK_CYCLES``,
   a ``CYCLE`` instant per negotiation cycle;
 * the fusion and plan machinery's, under the JAX package's names:
   ``QUEUE_ENQUEUE`` on a tensor's lane, ``CYCLE_FLUSH.<trigger>`` on the
   ``fusion_cycle`` lane, ``INFLIGHT_DEPTH.<n>`` and ``PIPELINE_<stage>``
-  ranges on the ``pipeline`` lane, ``QOS_<event>.<tenant>`` on the ``qos``
-  lane, ``CAPTURE_<event>`` (``RECORD``, ``SEAL``, ``REPLAY``,
-  ``REPLAY_DONE``, ``BYPASS``, ``FALLBACK``) on the ``step_capture`` lane
-  and ``PLAN_HIT``/``PLAN_MISS`` on an op's lane.
+  ranges on the ``pipeline`` lane (``ISSUE``: one flush's issue; ``PACK``:
+  the wire buffers' packing; ``SLOT_WAIT``; ``DISPATCH``),
+  ``QOS_<event>.<tenant>`` on the ``qos`` lane, ``CAPTURE_<event>``
+  (``RECORD``, ``SEAL``, ``REPLAY``, ``REPLAY_DONE``, ``BYPASS``,
+  ``FALLBACK``) on the ``step_capture`` lane and ``PLAN_HIT``/``PLAN_MISS``
+  on an op's lane.
 
-**Host clock, never the device's.** A record takes the host's steady clock
-and never synchronizes the card: an activity is the host-side range around
-the *issue* of asynchronous NCCL work, not the work's device duration
-(which a ``torch.profiler`` trace shows; :class:`op_range` also opens a
-``torch.profiler.record_function`` range, the NVTX analog, so both traces
-line up). The JAX package annotated ``jax.profiler`` traces the same way.
+Every range is a :func:`span`: on the timeline while it is active, and a
+``torch.profiler.record_function`` range named ``hvd.<activity>.<lane>``
+while ``torch.profiler`` records the calling thread (the NVTX analog; the
+profiler's state is per thread, so a thread it was not started from, such
+as the flush executor's, records nothing there). With neither on, a span
+costs two flag checks.
+
+**Host clock, never the device's.** A timeline record takes the native
+writer's steady clock, a profiler range the profiler's, and neither
+synchronizes the card: an activity is the host-side range around the
+*issue* of asynchronous NCCL work, not the work's device duration (which
+a ``torch.profiler`` trace shows). The JAX package annotated
+``jax.profiler`` traces the same way.
 
 A world above one writes one file a process, ``<HVD_TIMELINE>.<rank>``;
 :func:`merge_timelines` joins them into one trace, one pid a rank.
@@ -35,7 +49,11 @@ A world above one writes one file a process, ``<HVD_TIMELINE>.<rank>``;
 
 from __future__ import annotations
 
+import contextlib
 import threading
+
+import torch
+from torch._C._autograd import _profiler_enabled
 
 from .utils import envs
 from .utils import logging as hvd_logging
@@ -55,6 +73,7 @@ PHASE_INSTANT = 2
 QUEUE_ENQUEUE = "QUEUE_ENQUEUE"
 CYCLE_FLUSH = "CYCLE_FLUSH"
 PIPELINE_LANE = "pipeline"
+OPTIMIZER_LANE = "optimizer"
 INFLIGHT_DEPTH = "INFLIGHT_DEPTH"
 QOS_LANE = "qos"
 CAPTURE_LANE = "step_capture"
@@ -192,10 +211,11 @@ def record_capture(event: str) -> None:
         record(CAPTURE_LANE, f"CAPTURE_{event}", PHASE_INSTANT)
 
 
-def pipeline_stage(stage: str) -> "op_range":
-    """A ``PIPELINE_<stage>`` range on the ``pipeline`` lane (``SLOT_WAIT``:
-    the executor blocked on the device; ``DISPATCH``: a chunk's issue)."""
-    return op_range(PIPELINE_LANE, f"PIPELINE_{stage}")
+def pipeline_stage(stage: str) -> "_Span | contextlib.nullcontext":
+    """A ``PIPELINE_<stage>`` range on the ``pipeline`` lane (``ISSUE``: a
+    flush's issue; ``PACK``: packing wire buffers; ``SLOT_WAIT``: the
+    executor blocked on the device; ``DISPATCH``: a chunk's issue)."""
+    return span(PIPELINE_LANE, f"PIPELINE_{stage}")
 
 
 def merge_timelines(inputs, output: str) -> int:
@@ -229,34 +249,49 @@ def merge_timelines(inputs, output: str) -> int:
     return len(events)
 
 
-class op_range:
-    """Trace one eager collective's issue: begin and end records on
-    ``tensor``'s lane, and a ``torch.profiler.record_function`` range named
-    ``hvd.<activity>.<tensor>``. Both only while the timeline is active;
-    neither touches the device."""
+_NO_SPAN = contextlib.nullcontext()  # neither timeline nor profiler on
 
-    __slots__ = ("tensor", "activity", "_fn")
 
-    def __init__(self, tensor: str, activity: str):
-        self.tensor = tensor
+class _Span:
+    __slots__ = ("lane", "activity", "_fn", "_recorded")
+
+    def __init__(self, lane: str, activity: str, profiled: bool):
+        self.lane = lane
         self.activity = activity
-        self._fn = None
+        self._fn = (torch.profiler.record_function(f"hvd.{activity}.{lane}")
+                    if profiled else None)
+        self._recorded = False
 
     def __enter__(self):
         if _active:
-            record(self.tensor, self.activity, PHASE_BEGIN)
-            import torch
-            self._fn = torch.profiler.record_function(
-                f"hvd.{self.activity}.{self.tensor}")
+            record(self.lane, self.activity, PHASE_BEGIN)
+            self._recorded = True
+        if self._fn is not None:
             self._fn.__enter__()
         return self
 
     def __exit__(self, *exc):
         if self._fn is not None:
             self._fn.__exit__(*exc)
-            self._fn = None
-            record(self.tensor, self.activity, PHASE_END)
+        if self._recorded:
+            record(self.lane, self.activity, PHASE_END)
         return False
+
+
+def span(lane: str, activity: str) -> "_Span | contextlib.nullcontext":
+    """A range of ``activity`` on ``lane``: begin and end records on the
+    timeline while it is active, and a ``torch.profiler.record_function``
+    range ``hvd.<activity>.<lane>`` (name, start and end on the profiler's
+    clock, nested in the calling thread's open range) while the profiler
+    records this thread. Neither touches the device; with both off it
+    allocates nothing."""
+    profiled = _profiler_enabled()
+    if not (_active or profiled):
+        return _NO_SPAN
+    return _Span(lane, activity, profiled)
+
+
+op_range = span  # the eager collectives' name for it
 
 
 if __name__ == "__main__":

@@ -16,7 +16,7 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 PORT_FILES = sorted((REPO / "horovod_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "convnet_host_probe.py",
-    REPO / "trainer_turns.py", REPO / "timeline_turns.py"]
+    REPO / "trainer_turns.py"]
 
 
 def _imported_modules(path: Path):
