@@ -23,6 +23,11 @@ Phases, each of which exits non-zero on failure:
    sk 11, q offset 3, d 64, float32, causal and not), timed with CUDA events
    beside its plain version, ``scaled_dot_product_attention`` (the
    library's yardstick; the port never calls it) and its roofline bound;
+4b. batch norm (alone: ``python3 chip_smoke.py --batch-norm``): the four
+   BatchNorm kernels of ``csrc/batch_norm.cu`` built (a spill fails the
+   phase), held to their plain versions and timed by their device time
+   beside their bound, the plain versions and ``F.batch_norm`` at
+   ResNet-50's stem and last-stage shapes at batch 256 (``BN_SHAPES``);
 5. reference: the model's flash path against its plain attention path on a
    small float32 input;
 6. trainer: data-parallel TransformerLM training at the full width of the
@@ -168,9 +173,9 @@ Phases, each of which exits non-zero on failure:
    causal ring of 4 over 16384 tokens and rank 0 of a zigzag ring of 4
    launch; each kernel timed on the fully-past 4096 x 4096 block, where
    every pair is live;
-11. convnets: the data-parallel convnet path, which runs no kernel of the
-   port (convolutions, pooling and BatchNorm are cuDNN and torch ops, as
-   they are XLA's in the JAX package). First, in a fresh process of its
+11. convnets: the data-parallel convnet path, whose only kernels of the
+   port are BatchNorm's (convolutions and pooling are cuDNN and torch ops,
+   as they are XLA's in the JAX package). First, in a fresh process of its
    own, so that no earlier host work slows the host-bound steps: the
    synthetic-benchmark twin at its defaults (ResNet-50, 224x224, batch 32,
    NCCL world 1, 2 warmup and 10 timed steps) with ``Compression.none`` and
@@ -198,8 +203,8 @@ trainer's, the Ray and Spark trainers' and the MoE run's main path),
 preceded by ``{"adasum": ...}``, ``{"negotiation": ...}``,
 ``{"fusion": ...}``, ``{"cached_step": ..., "checkpoint": ...}``,
 ``{"launch": ..., "elastic": ...}`` and ``{"autoscale": ..., "ray": ...,
-"spark": ...}``,
-the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
+"spark": ...}`` and followed by ``{"batch_norm": [...]}`` (the BatchNorm
+kernels' rows), the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -316,6 +321,171 @@ def phase_build():
                       f"{'bf16' if bf16 else 'float32'}: {threads} threads, "
                       f"{smem} B dynamic shared memory per block")
     require(not spills, f"kernels spill registers: {spills}")
+
+
+def device_ms(fn, reps: int, warmup: int = 2) -> tuple[float, dict]:
+    """Device time of one call of ``fn``: every kernel, copy and set its
+    ``reps`` calls run, from ``torch.profiler``, over ``reps``; and that time
+    by kernel name. Unlike :func:`time_ms` it leaves out the host's time
+    between launches, which at small shapes exceeds the kernels'."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if "CUDA" in str(getattr(e, "device_type", ""))
+              and not getattr(e, "is_user_annotation", False)]
+    by_name = {e.key[:120]: e.self_device_time_total / 1e3 / reps
+               for e in events}
+    return sum(by_name.values()), by_name
+
+
+# The BatchNorm phase's shapes (n, c, h, w): ResNet-50's stem and its last
+# stage at batch 256, bf16, channels-last.
+BN_SHAPES = {"stem": (256, 64, 112, 112), "stage4": (256, 2048, 7, 7)}
+# The kernels against the plain versions there, with the bf16 limits of
+# tests/test_torch_cuda.py's BN_LIMITS: y and dx within one bf16 step (2^-7
+# of the value) plus 1e-5; each per-channel sum (the moments, dweight,
+# dbias, the moments' cotangents) and the moved running averages within
+# 1e-5 of the absolute sum of its terms, the float32 sums' rounding, plus
+# two float32 steps of its value (its own last roundings).
+BN_RTOL, BN_ATOL, BN_SUMS = 2 ** -7, 1e-5, 1e-5
+BATCH_NORM_FLAG = "--batch-norm"
+
+
+def phase_batch_norm(dev) -> dict:
+    """The BatchNorm kernels (``csrc/batch_norm.cu``): their build (each
+    kernel's registers, shared memory and spills; a spill fails the
+    phase), then at ``BN_SHAPES`` the kernels against their plain versions
+    in training mode, every output (``BN_RTOL``, ``BN_ATOL``, ``BN_SUMS``)
+    and, by :func:`device_ms`, the forward kernels
+    (stats, norm) and the backward ones (bwd_reduce, bwd_dx) beside their
+    bound (each input byte read once, each output byte written once, at
+    3.35 TB/s), the two-pass design's bytes, the plain versions and
+    torch's ``F.batch_norm`` (``library_ms``; the port never calls it)."""
+    import torch.nn.functional as F
+    from horovod_tpu_torch.models import sync_batch_norm as sbn
+    from horovod_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build(["batch_norm"])
+    print(f"[batch_norm] build {time.perf_counter() - t0:.1f} s")
+    spills = []
+    for line in _build.build_logs.get("batch_norm", "(cached)").splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line \
+                or "cached" in line:
+            print(f"[batch_norm] {line.strip()}")
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and int(m.group(1)) > 0:
+            spills.append(line.strip())
+    require(not spills, f"BatchNorm kernels spill registers: {spills}")
+    rows, failed = [], []
+    for name, shape in BN_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(17)
+        x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        dy = torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        c = shape[1]
+        w = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+        b = 0.1 * torch.randn(c, generator=g, device=dev)
+        eps, bf = 1e-5, torch.bfloat16
+        ra0 = (0.1 * torch.randn(c, generator=g, device=dev),
+               1 + 0.1 * torch.randn(c, generator=g, device=dev).abs())
+        out = {}
+        for who, steps in (("kernels", sbn.KERNELS), ("plain", sbn.PLAIN)):
+            rm, rv = ra0[0].clone(), ra0[1].clone()
+            stats = steps["stats"](x)
+            y = steps["norm"](x, stats, True, w, b, eps, bf, (rm, rv, 0.9))
+            dw, db, dstats = steps["bwd_reduce"](dy, x, stats, True, w, eps)
+            dx = steps["bwd_dx"](dy, x, stats, True, w, eps, dstats)
+            out[who] = {"stats": stats, "y": y, "dweight": dw, "dbias": db,
+                        "dstats": dstats, "dx": dx, "running_mean": rm,
+                        "running_var": rv}
+        # each sum's terms, summed in absolute value (per channel)
+        dims = (0, 2, 3)
+        x32, dy32 = x.float(), dy.float()
+        mean = x32.mean(dims, keepdim=True)
+        r = torch.rsqrt(x32.var(dims, unbiased=False) + eps)
+        dyx = (dy32 * (x32 - mean)).abs().sum(dims)
+        ddvar = 0.5 * w.abs() * r ** 3 * dyx
+        batch = torch.stack((mean.flatten(), x32.var(dims, unbiased=False)))
+        terms = {"stats": torch.stack((x32.abs().mean(dims),
+                                       x32.square().mean(dims))),
+                 "dweight": dyx * r, "dbias": dy32.abs().sum(dims),
+                 "dstats": torch.stack((
+                     (r * w).abs() * dy32.abs().sum(dims)
+                     + 2 * mean.flatten().abs() * ddvar, ddvar))}
+        for i, k in enumerate(("running_mean", "running_var")):
+            terms[k] = 0.9 * ra0[i].abs() + 0.1 * batch[i].abs()
+        got, want = out["kernels"], out["plain"]
+        errs = {}
+        for k in ("y", "dx"):
+            err = (got[k].float() - want[k].float()).abs()
+            errs[k] = (err / (BN_ATOL + BN_RTOL * want[k].float().abs())
+                       ).max().item()
+        f32 = torch.finfo(torch.float32).eps
+        for k, t in terms.items():
+            err = (got[k].float() - want[k].float()).abs()
+            errs[k] = (err / (BN_SUMS * t + 2 * f32 * want[k].float().abs())
+                       ).max().item()
+        failed += [f"{name} {k}" for k, v in errs.items() if not v <= 1.0]
+        stats, dstats = got["stats"], got["dstats"]
+        xs = x.detach().requires_grad_()
+        rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        wl, bl = w.clone().requires_grad_(), b.clone().requires_grad_()
+
+        def library():
+            F.batch_norm(xs, rm, rv, wl, bl, True, 0.1, eps).backward(dy)
+
+        runs = {
+            "fwd_ms": lambda: sbn.norm_kernel(
+                x, sbn.stats_kernel(x), True, w, b, eps, bf),
+            "bwd_ms": lambda: sbn.bwd_dx_kernel(
+                dy, x, stats, True, w, eps,
+                sbn.bwd_reduce_kernel(dy, x, stats, True, w, eps)[2]),
+            "plain_fwd_ms": lambda: sbn.norm_plain(
+                x, sbn.stats_plain(x), True, w, b, eps, bf),
+            "plain_bwd_ms": lambda: sbn.bwd_dx_plain(
+                dy, x, stats, True, w, eps,
+                sbn.bwd_reduce_plain(dy, x, stats, True, w, eps)[2]),
+            "library_ms": library}
+        times, kernels = {}, {}
+        for key, fn in runs.items():
+            times[key], named = device_ms(fn, 10)
+            if key in ("fwd_ms", "bwd_ms"):
+                kernels.update({k: v for k, v in named.items()
+                                if "hvdbn" in k})
+        for k, v in kernels.items():
+            print(f"[batch_norm] {name}: {v:.4f} ms {k}")
+        n = x.numel()
+        row = {"name": name, "shape": list(shape), "dtype": "bf16",
+               "layout": "channels_last", "errors": errs, **times,
+               # each input read once, each output written once: forward
+               # x and y, backward x, dy and dx; two passes: x twice
+               # forward, x and dy twice backward
+               "bound_fwd_ms": 4 * n / HBM_BYTES_PER_S * 1e3,
+               "bound_bwd_ms": 6 * n / HBM_BYTES_PER_S * 1e3,
+               "two_pass_fwd_ms": 6 * n / HBM_BYTES_PER_S * 1e3,
+               "two_pass_bwd_ms": 10 * n / HBM_BYTES_PER_S * 1e3}
+        rows.append(row)
+        print(f"[batch_norm] {name} {tuple(shape)} bf16 channels-last: "
+              f"forward {row['fwd_ms']:.3f} ms (bound "
+              f"{row['bound_fwd_ms']:.3f}, two-pass "
+              f"{row['two_pass_fwd_ms']:.3f}, plain "
+              f"{row['plain_fwd_ms']:.3f}); backward {row['bwd_ms']:.3f} "
+              f"ms (bound {row['bound_bwd_ms']:.3f}, two-pass "
+              f"{row['two_pass_bwd_ms']:.3f}, plain "
+              f"{row['plain_bwd_ms']:.3f}); F.batch_norm forward and "
+              f"backward {row['library_ms']:.3f} ms; errors against the "
+              f"plain version as shares of the limit {errs}")
+    require(not failed, f"BatchNorm kernels disagree with the plain "
+            f"versions: {failed}")
+    return {"batch_norm": rows}
 
 
 def by_slice(fn, *args):
@@ -3240,11 +3410,13 @@ def convnet_twins(dev) -> dict:
     each, whose busy time is set against the timed step."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.examples import synthetic_benchmark as sb
+    from horovod_tpu_torch.models import sync_batch_norm as sbn
     from horovod_tpu_torch.ops import flash
     hvd.init()
     require(hvd.size() == 1 and hvd.device() == dev, "init(): not world 1")
     out, kept = {}, {}
     flash.reset_launch_counts()
+    sbn.reset_launch_counts()
     for key, flags in CONVNET_TWIN_RUNS:
         res, step, opt = sb.train(sb.parse_args(flags))
         wire = key.partition("/")[2]  # the ResNet-50 runs name theirs
@@ -3255,6 +3427,7 @@ def convnet_twins(dev) -> dict:
                     f"{key}: loss did not fall")
             kept[key] = step, opt
     launches = dict(flash.launches)
+    batch_norm_launches = dict(sbn.launches)
     for key, (_, opt) in kept.items():
         res = out[key]
         res["sync_ms"] = time_ms(lambda: _sync_again(opt), 20)
@@ -3271,7 +3444,8 @@ def convnet_twins(dev) -> dict:
               f" ms of the timed {res['step_ms']:.2f} ms step "
               f"({100 * res['busy_share']:.1f} %)")
     hvd.shutdown()
-    return {"runs": out, "launches": launches}
+    return {"runs": out, "launches": launches,
+            "batch_norm_launches": batch_norm_launches}
 
 
 def _sync_again(opt) -> None:
@@ -3319,9 +3493,10 @@ def phase_convnets(dev) -> dict:
           f"losses {['%.4f' % v for v in steps]}")
     require(all(math.isfinite(v) for v in steps) and steps[-1] < steps[0],
             "MNIST twin: the loss did not fall over its smoke epoch")
-    print(f"[convnets] port kernel launches on this path: {launches} (it "
-          "has none: convolutions, pooling and BatchNorm are cuDNN and "
-          "torch ops)")
+    print(f"[convnets] flash kernel launches on this path: {launches} (it "
+          "has none); BatchNorm kernel launches in the twins' runs: "
+          f"{twins['batch_norm_launches']} (convolutions and pooling are "
+          "cuDNN and torch ops)")
     return twins["runs"]
 
 
@@ -3333,7 +3508,8 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     children = {CONVNET_TWINS_FLAG: convnet_twins,
-                LONG_CONTEXT_FLAG: long_context}
+                LONG_CONTEXT_FLAG: long_context,
+                BATCH_NORM_FLAG: phase_batch_norm}
     if len(argv) == 1 and argv[0] in children:  # a child of run_child
         print(json.dumps(children[argv[0]](dev)))
         return 0
@@ -3356,6 +3532,7 @@ def main(argv) -> int:
     timed("build", phase_build)
     edges = timed("tile edges", phase_tile_edges, dev)
     rows = timed("kernels", phase_kernels, dev)
+    batch_norm = timed("batch norm", phase_batch_norm, dev)
     timed("reference", phase_reference, dev)
     launches, k2_launches, trainer = timed("trainer", phase_trainer, dev)
     ada, ada_launches = timed("adasum", phase_adasum, dev)
@@ -3413,6 +3590,7 @@ def main(argv) -> int:
     print(json.dumps({"launch": launch, "elastic": elastic}))
     print(json.dumps({"autoscale": autoscale, "ray": ray, "spark": spark}))
     print(json.dumps({"kernels": rows}))
+    print(json.dumps(batch_norm))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

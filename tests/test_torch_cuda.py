@@ -253,6 +253,202 @@ def test_cuda_sync_batch_norm_world1_equals_batch_norm(cuda_world, dtype):
         assert torch.equal(a, b), name
 
 
+# Every distinct (n, c, h, w) that ResNet-50's 53 norms take at batch 256,
+# 224 x 224 (``test_torch_sync_bn.py`` derives them from the model).
+RESNET50_NORM_SHAPES = (
+    (256, 64, 112, 112), (256, 64, 56, 56), (256, 128, 56, 56),
+    (256, 256, 56, 56), (256, 128, 28, 28), (256, 256, 28, 28),
+    (256, 512, 28, 28), (256, 256, 14, 14), (256, 512, 14, 14),
+    (256, 1024, 14, 14), (256, 512, 7, 7), (256, 2048, 7, 7))
+
+# The BatchNorm kernels against their plain versions, per element.
+# y and dx: the kernels round every step as the plain torch ops do, except
+# that bwd_dx fuses its multiply-adds; what differs before the last rounding
+# is the order of the float32 sums behind the per-channel coefficients
+# (a few float32 roundings of values of order 1, so under 1e-5), and a
+# bf16 output may then round to the neighbouring bf16 value (at most 2^-7 of
+# it). dweight and dbias: float32 sums of the same n terms in two orders,
+# each within about (its chain of roundings) x 2^-24 of the terms' absolute
+# sum; chains of a few hundred, whose errors mostly cancel, stay within
+# 1e-5 of that sum. The running averages move by 1 - momentum = 0.1 of the
+# batch moments, float32 sums of n values in two orders: within 1e-5 of
+# E[x^2]. float64: the same arguments at 2^-53, and one float32 rounding of
+# the parameters' gradients and the running averages.
+BN_LIMITS = {torch.float32: {"rtol": 1e-5, "atol": 1e-5, "sums": 1e-5},
+             torch.bfloat16: {"rtol": 2 ** -7, "atol": 1e-5, "sums": 1e-5},
+             torch.float64: {"rtol": 1e-12, "atol": 1e-12, "sums": 1e-12}}
+
+
+def _bn_case(shape, dtype, device, layout, seed):
+    """Seeded x (about N(0.5, 2^2)) and dy (N(0, 1)) of ``shape`` in
+    ``layout`` (``channels_last``, ``nchw`` or ``plain`` for a tensor of
+    any rank as it comes), and a state (weight, bias, running averages)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=device) * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=g, device=device).to(dtype)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+        dy = dy.contiguous(memory_format=torch.channels_last)
+    c = shape[1]
+    state = {"weight": 1 + 0.1 * torch.randn(c, generator=g, device=device),
+             "bias": 0.1 * torch.randn(c, generator=g, device=device),
+             "running_mean": 0.1 * torch.randn(c, generator=g,
+                                               device=device),
+             "running_var": 1 + 0.1 * torch.randn(
+                 c, generator=g, device=device).abs()}
+    return x, dy, state
+
+
+def _bn_run(x, dy, state, train, plain=False):
+    """One pass of a ``BatchNorm`` from ``state`` through the kernels (or
+    through the plain versions, on the same card): y, dx, dweight, dbias
+    and the running averages after it."""
+    from horovod_tpu_torch.models import BatchNorm
+    from horovod_tpu_torch.models import sync_batch_norm as sbn
+    norm = BatchNorm(x.shape[1], dtype=x.dtype, device=x.device)
+    norm.load_state_dict(state)
+    norm.train(train)
+    xs = x.detach().clone().requires_grad_()
+    steps = sbn._steps
+    if plain:
+        sbn._steps = lambda t, dtype: sbn.PLAIN
+    try:
+        y = norm(xs)
+        y.backward(dy)
+    finally:
+        sbn._steps = steps
+    return {"y": y.detach(), "dx": xs.grad, "dweight": norm.weight.grad,
+            "dbias": norm.bias.grad, "running_mean": norm.running_mean,
+            "running_var": norm.running_var}
+
+
+def _bn_hold(got, want, x, dy, state, train):
+    """``got`` against ``want`` within ``BN_LIMITS``; raises naming the
+    first quantity out of them."""
+    lim = dict(BN_LIMITS[x.dtype])
+    if x.dtype == torch.float64 and not train:
+        # eval mode's coefficient rsqrt(var + eps) * weight: the plain
+        # version takes it in the float32 running averages' dtype, as flax
+        # does; the kernels in float64
+        lim["rtol"] = lim["atol"] = 2 ** -22
+    acc = torch.promote_types(x.dtype, torch.float32)
+    dims = [0] + list(range(2, x.dim()))
+    x32, dy32 = x.to(acc), dy.to(acc)
+    mean = x32.mean(dims, keepdim=True)
+    r = torch.rsqrt(x32.var(dims, unbiased=False) + 1e-5)
+    if not train:
+        mean = state["running_mean"].to(acc).view_as(mean)
+        r = torch.rsqrt(state["running_var"].to(acc) + 1e-5)
+    sums = {"dbias": dy32.abs().sum(dims),
+            "dweight": (dy32 * (x32 - mean)).abs().sum(dims) * r}
+    for k in ("y", "dx"):
+        torch.testing.assert_close(
+            got[k].to(acc), want[k].to(acc), rtol=lim["rtol"],
+            atol=lim["atol"], msg=lambda m, k=k: f"{k}: {m}")
+    # a float64 result is rounded to its float32 parameter or buffer last
+    last = lambda t: torch.finfo(t.dtype).eps * t.abs().to(acc)
+    for k, s in sums.items():
+        err = (got[k] - want[k]).abs().to(acc)
+        assert (err <= lim["sums"] * s + last(want[k])).all(), (
+            f"{k}: {(err / s).max().item():.3g} of the terms' absolute sum")
+    scale = x32.square().mean()
+    for k in ("running_mean", "running_var"):
+        # 0.9 ra + 0.1 batch: the plain version rounds 0.9 ra to the float32
+        # buffer's dtype first, and the sum to it last, each within an eps
+        # of the terms, whose sum may cancel far below them
+        old = state[k].to(acc)
+        terms = 0.9 * old.abs() + (want[k].to(acc) - 0.9 * old).abs()
+        eps = torch.finfo(want[k].dtype).eps
+        err = (got[k] - want[k]).abs().to(acc)
+        assert (err <= lim["sums"] * scale + 2 * eps * terms).all(), (
+            f"{k}: {err.max().item():.3g}")
+        if not train:
+            assert torch.equal(got[k], state[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", RESNET50_NORM_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_batch_norm_kernels_match_plain(cuda_device, shape, dtype,
+                                             layout, train):
+    """The four BatchNorm kernels (``csrc/batch_norm.cu``) against their
+    plain versions on the card, at every norm shape of ResNet-50 at batch
+    256, bf16 and float32, channels-last (read as it lies) and NCHW (copied
+    once to rows), training and eval mode: y, dx, dweight, dbias and the
+    running averages within ``BN_LIMITS``; each kernel launched once (eval:
+    no stats)."""
+    from horovod_tpu_torch.models import sync_batch_norm as sbn
+    x, dy, state = _bn_case(shape, dtype, cuda_device, layout, sum(shape))
+    sbn.reset_launch_counts()
+    got = _bn_run(x, dy, state, train)
+    assert sbn.launches == {"stats": int(train), "norm": 1, "bwd_reduce": 1,
+                            "bwd_dx": 1}
+    want = _bn_run(x, dy, state, train, plain=True)
+    assert sbn.launches["norm"] == 1  # the plain run launched nothing
+    _bn_hold(got, want, x, dy, state, train)
+    # y lies as rows of C contiguous channels (dx reaches the leaf in the
+    # leaf's own layout, by autograd's gradient layout contract)
+    assert got["y"].movedim(1, -1).is_contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+@pytest.mark.parametrize("shape,dtype,layout", [
+    ((1000, 6), torch.float32, "plain"),        # (n, C), C not of 16 B
+    ((8, 6, 5, 3), torch.bfloat16, "nchw"),     # the world-1 test's input
+    ((4, 24, 33), torch.bfloat16, "plain"),     # (n, C, L)
+    ((64, 2048, 3, 3), torch.float32, "channels_last"),  # 8 slabs of 64
+    ((32, 200, 9, 9), torch.bfloat16, "channels_last"),  # a ragged slab
+    ((16, 64, 12, 12), torch.float64, "channels_last"),
+    ((0, 8, 4, 4), torch.bfloat16, "channels_last")])     # no rows
+def test_cuda_batch_norm_kernels_match_plain_at_odd_shapes(
+        cuda_device, shape, dtype, layout, train):
+    """The kernels against their plain versions where the vector loads do
+    not fit (C not a multiple of 16 B: one element a thread), at other
+    ranks, at channel counts that split into slabs, in float64, and on an
+    empty batch (NaN moments, as torch's mean gives them)."""
+    x, dy, state = _bn_case(shape, dtype, cuda_device, layout, 7)
+    got = _bn_run(x, dy, state, train)
+    want = _bn_run(x, dy, state, train, plain=True)
+    if x.numel() == 0:
+        for k in ("running_mean", "running_var", "dweight", "dbias"):
+            torch.testing.assert_close(got[k], want[k], equal_nan=True)
+        return
+    _bn_hold(got, want, x, dy, state, train)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 64, 112, 112), (256, 2048, 7, 7)],
+                         ids=["stem", "stage4"])
+def test_cuda_batch_norm_kernels_are_deterministic(cuda_device, shape):
+    """Two runs of the kernels on the same input are bitwise equal: the
+    reductions use no float atomics."""
+    x, dy, state = _bn_case(shape, torch.bfloat16, cuda_device,
+                            "channels_last", 11)
+    a = _bn_run(x, dy, state, True)
+    b = _bn_run(x, dy, state, True)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_resnet50_step_launches_each_batch_norm_kernel_53_times(
+        cuda_device):
+    """One training step of the bf16 ResNet-50 on the card launches each
+    BatchNorm kernel once a norm: 53 times."""
+    from horovod_tpu_torch.models import ResNet50
+    from horovod_tpu_torch.models import sync_batch_norm as sbn
+    model = ResNet50(num_classes=1000, device=cuda_device)
+    x = torch.randn((2, 3, 64, 64), device=cuda_device)
+    sbn.reset_launch_counts()
+    model(x).float().sum().backward()
+    assert sbn.launches == dict.fromkeys(sbn.launches, 53)
+
+
 @pytest.mark.cuda
 def test_cuda_convnets_default_to_the_card(cuda_device):
     """A convnet or norm built with no ``device`` (and no ``init()``) lands

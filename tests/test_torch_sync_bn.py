@@ -228,3 +228,206 @@ def test_resnet_with_sync_batch_norm_world1_equals_resnet(torch_world):
     assert torch.equal(l0, l1)
     assert all(torch.equal(g0[n], g1[n]) for n in g0)
     assert all(torch.equal(s0[k], s1[k]) for k in s0)
+
+
+# --------------------------------------------------------------------------
+# the autograd function: its plain backward, its hooks and its launches
+# --------------------------------------------------------------------------
+
+def _clamped_channel_value(shape) -> float:
+    """A value that, filling a channel of ``shape``, gives that channel an
+    E[x^2] - E[x]^2 below 0 in float64 (rounding), so that the variance
+    clamps to 0 there."""
+    from horovod_tpu_torch.models import sync_batch_norm as sbn
+    for v in np.linspace(0.01, 3.0, 300):
+        x = torch.full((shape[0], 1) + shape[2:], float(v),
+                       dtype=torch.float64)
+        stats = sbn.stats_plain(x)
+        if stats[1, 0] - stats[0, 0].square() < 0:
+            return float(v)
+    raise AssertionError("no value clamps")
+
+
+def _gradcheck_inputs(seed=0, shape=(3, 3, 5, 1)):
+    """float64 x whose channel 1 clamps its variance to 0, and a weight and
+    bias, all leaves that require grad."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g, dtype=torch.float64) * 2 + 0.5
+    x[:, 1] = _clamped_channel_value(shape)
+    w = 1 + 0.1 * torch.randn(shape[1], generator=g, dtype=torch.float64)
+    b = 0.1 * torch.randn(shape[1], generator=g, dtype=torch.float64)
+    return [t.requires_grad_() for t in (x, w, b)]
+
+
+def _op_chain(norm, x, weight, bias, stats=None):
+    """The norm as the torch ops the port ran before its autograd function,
+    differentiated by autograd: the moments (or ``stats`` given), their
+    clamped variance and the normalization (training mode), or the running
+    averages (eval mode)."""
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    if norm.training:
+        dims = [0] + list(range(2, x.dim()))
+        if stats is None:
+            stats = torch.stack((x32.mean(dims), x32.square().mean(dims)))
+        mean, mean2 = stats
+        var = (mean2 - mean.square()).clamp_min(0.0)
+    else:
+        mean, var = norm.running_mean, norm.running_var
+    mul = torch.rsqrt(var + norm.epsilon) * weight
+    y = (x32 - mean.view(shape)) * mul.view(shape) + bias.view(shape)
+    return y.to(norm.compute_dtype)
+
+
+@pytest.mark.parametrize("cls", ["BatchNorm", "SyncBatchNorm"])
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_batch_norm_function_passes_gradcheck(torch_world, cls, train):
+    """The autograd function's plain backward (closed form) against finite
+    differences in float64, through both hooks (``SyncBatchNorm`` at a
+    world of one), with a channel whose variance clamps to 0."""
+    from horovod_tpu_torch.models import sync_batch_norm as sbn
+    x, w, b = _gradcheck_inputs()
+    norm = getattr(sbn, cls)(3, dtype=torch.float64, device="cpu")
+    norm.train(train)
+    with torch.no_grad():
+        norm.running_var.fill_(1.3)
+    assert torch.autograd.gradcheck(
+        lambda x, w, b: sbn._BatchNormFunction.apply(x, w, b, norm),
+        (x, w, b), eps=1e-6, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_batch_norm_backward_equals_autograd_of_the_op_chain(dtype, train):
+    """The function's output and its closed-form dx, dweight and dbias
+    against autograd of the plain op chain on the same input and cotangent,
+    with a channel whose variance clamps to 0: float64 within 1e-12
+    (relative, rounding only), float32 within 1e-5 and bf16 input (float32
+    arithmetic, bf16 output and dx) within one bf16 step of dx (2^-7) and
+    1e-5 of dweight and dbias (float32 sums of the same terms)."""
+    from horovod_tpu_torch.models import BatchNorm
+    dt = getattr(torch, dtype)
+    x0, w, b = _gradcheck_inputs(seed=1, shape=(4, 3, 6, 5))
+    ct = torch.randn(x0.shape, generator=torch.Generator().manual_seed(2),
+                     dtype=torch.float64)
+    tol = {"float64": (1e-12, 1e-12), "float32": (1e-5, 1e-5),
+           "bfloat16": (2 ** -7, 1e-5)}[dtype]
+    res = []
+    for run in ("function", "op chain"):
+        norm = BatchNorm(3, dtype=dt, device="cpu").train(train)
+        with torch.no_grad():
+            norm.weight.copy_(w)
+            norm.bias.copy_(b)
+        x = x0.detach().to(dt).requires_grad_()
+        if run == "function":
+            y = norm(x)
+        else:
+            y = _op_chain(norm, x, norm.weight, norm.bias)
+        (y.double() * ct).sum().backward()
+        res.append({"y": y.double(), "dx": x.grad.double(),
+                    "dweight": norm.weight.grad.double(),
+                    "dbias": norm.bias.grad.double()})
+    got, want = res
+    for k in ("y", "dx"):
+        torch.testing.assert_close(got[k], want[k], rtol=tol[0], atol=tol[0],
+                                   msg=lambda m, k=k: f"{k}: {m}")
+    for k in ("dweight", "dbias"):
+        torch.testing.assert_close(got[k], want[k], rtol=tol[1], atol=tol[1],
+                                   msg=lambda m, k=k: f"{k}: {m}")
+
+
+def test_batch_norm_moment_cotangents_follow_the_clamp():
+    """``bwd_reduce_plain``'s cotangents of the moments and ``bwd_dx_plain``
+    without them against autograd of ``norm_plain`` with the moments as a
+    leaf: one channel whose E[x^2] - E[x]^2 is below 0 (the clamp passes no
+    gradient), one where it is exactly 0 (torch's ``clamp_min`` passes it)
+    and one above, in float64 within 1e-12."""
+    from horovod_tpu_torch.models import sync_batch_norm as sbn
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 3, 5, 2), generator=g, dtype=torch.float64)
+    dy = torch.randn(x.shape, generator=g, dtype=torch.float64)
+    w = torch.tensor([0.9, 1.1, 1.2], dtype=torch.float64)
+    b = torch.tensor([0.1, -0.2, 0.3], dtype=torch.float64)
+    stats = torch.tensor([[1.0, 0.5, 0.2], [0.5, 0.25, 1.3]],
+                         dtype=torch.float64)
+    leaves = [t.clone().requires_grad_() for t in (x, stats, w, b)]
+    y = sbn.norm_plain(leaves[0], leaves[1], True, leaves[2], leaves[3],
+                       1e-5, torch.float64)
+    want = torch.autograd.grad(y, leaves, dy)
+    dw, db, dstats = sbn.bwd_reduce_plain(dy, x, stats, True, w, 1e-5)
+    dx = sbn.bwd_dx_plain(dy, x, stats, True, w, 1e-5, None)
+    assert dstats[1, 0] == 0 and want[1][1, 0] == 0  # clamped: no gradient
+    assert want[1][1, 1] != 0  # exactly 0: the gradient passes
+    for name, a, e in zip(("dx", "dstats", "dweight", "dbias"),
+                          (dx, dstats, dw, db), want):
+        torch.testing.assert_close(a, e, rtol=1e-12, atol=1e-12,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+def test_batch_norm_on_the_cpu_launches_no_kernel():
+    """The CPU's path is the plain versions: the kernel counters stay 0
+    through a training and an eval pass, forward and backward."""
+    from horovod_tpu_torch.models import BatchNorm
+    from horovod_tpu_torch.models import sync_batch_norm as sbn
+    sbn.reset_launch_counts()
+    norm = BatchNorm(6, device="cpu")
+    for train in (True, False):
+        norm.train(train)
+        x = torch.randn((4, 6, 3, 3)).requires_grad_()
+        norm(x).float().sum().backward()
+    assert sbn.launches == dict.fromkeys(sbn.launches, 0)
+
+
+def test_resnet50_norm_shapes():
+    """ResNet-50 at batch 256, 224 x 224 has 53 norms over 11,113,984
+    elements an image, at the distinct shapes the card tests hold the
+    kernels at (``test_torch_cuda.RESNET50_NORM_SHAPES``): its forward pass
+    on the meta device, the norms on their plain versions."""
+    from horovod_tpu_torch.models import BatchNorm, ResNet50
+    from horovod_tpu_torch.models import sync_batch_norm as sbn
+    from test_torch_cuda import RESNET50_NORM_SHAPES
+    model = ResNet50(num_classes=1000, device="meta")
+    shapes = []
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.register_forward_pre_hook(
+                lambda mod, args: shapes.append(tuple(args[0].shape)))
+    steps = sbn._steps
+    sbn._steps = lambda x, dtype: sbn.PLAIN  # meta tensors: no kernels
+    try:
+        model(torch.empty((256, 3, 224, 224), device="meta"))
+    finally:
+        sbn._steps = steps
+    assert len(shapes) == 53
+    assert sum(torch.Size(s).numel() for s in shapes) == 256 * 11_113_984
+    assert set(shapes) == set(RESNET50_NORM_SHAPES)
+
+
+def test_batch_norm_second_derivative_raises():
+    """The backward takes the moments as constants, so it is marked
+    differentiable once: a second derivative raises rather than dropping
+    the terms through the moments."""
+    from horovod_tpu_torch.models import BatchNorm
+    norm = BatchNorm(3, dtype=torch.float64, device="cpu")
+    x = torch.randn((4, 3, 2, 2), dtype=torch.float64).requires_grad_()
+    y = norm(x)
+    (dx,) = torch.autograd.grad((y * y).sum(), x, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dx.sum().backward()
+
+
+@pytest.mark.parametrize("shape,layout", [
+    ((4, 6, 3, 5), "nchw"), ((4, 6, 3, 5), "channels_last"),
+    ((5, 6), "plain"), ((4, 6, 7), "plain")])
+def test_rows_keeps_shape_and_values_with_channels_innermost(shape, layout):
+    """``_rows``, the layout the kernels read: the same shape and values,
+    channels innermost (stride 1, the other dims in order), and the tensor
+    itself, no copy, where it already lies so."""
+    from horovod_tpu_torch.models import sync_batch_norm as sbn
+    t = torch.arange(float(np.prod(shape))).reshape(shape)
+    if layout == "channels_last":
+        t = t.contiguous(memory_format=torch.channels_last)
+    got = sbn._rows(t)
+    assert got.shape == t.shape and torch.equal(got, t)
+    assert got.movedim(1, -1).is_contiguous()
+    assert (got is t) == t.movedim(1, -1).is_contiguous()
