@@ -500,22 +500,25 @@ def by_slice(fn, *args):
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
-def _block_inputs(g, dev, dtype, bh, sq, sk, d, qpos0, kpos0, causal):
+def _block_inputs(g, dev, dtype, bh, sq, sk, d, qpos0, kpos0, causal,
+                  dv=None):
     """Seeded (q, k, v) with q pre-scaled, the forward's lse and out, and a
-    random float32 dout with D = rowsum(dout * out)."""
+    random float32 dout with D = rowsum(dout * out); v of width ``dv``
+    (``d`` by default)."""
     from horovod_tpu_torch.ops import flash
+    dv = dv or d
     q = (torch.randn((bh, sq, d), generator=g, device=dev)
          / math.sqrt(d)).to(dtype)
     k = torch.randn((bh, sk, d), generator=g, device=dev).to(dtype)
-    v = torch.randn((bh, sk, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((bh, sk, dv), generator=g, device=dev).to(dtype)
     carries = (torch.full((bh, sq, 1), flash.NEG_INF, device=dev),
                torch.zeros((bh, sq, 1), device=dev),
-               torch.zeros((bh, sq, d), device=dev))
+               torch.zeros((bh, sq, dv), device=dev))
     m, l, acc = by_slice(flash.attend_plain, q, k, v, qpos0, kpos0, causal,
                          *carries)
     l_safe = l.clamp_min(1e-30)
     lse = m + torch.log(l_safe)
-    dout = torch.randn((bh, sq, d), generator=g, device=dev)
+    dout = torch.randn((bh, sq, dv), generator=g, device=dev)
     D = (dout * (acc / l_safe)).sum(-1, keepdim=True)
     return q, k, v, carries, lse, dout, D
 
@@ -822,6 +825,104 @@ def phase_kernels(dev):
               f"library {lib_ms:.3f} ms, bound {bound_ms:.3f} ms by "
               f"{bound_by})")
     return rows
+
+
+MLA_KERNELS_FLAG = "--mla-kernels"
+
+# The row limits of tests/test_torch_cuda.py's bf16 kernel tests, which the
+# multi-head latent attention widths are held to at every shape: each row of
+# acc / l, dq and dk within 1e-2 of its plain row (a bf16 rounding of p or
+# ds inside the function may go to the neighbouring value), dv within 1e-3,
+# and dq's and dk's 90th-percentile rows within 1e-4.
+MLA_LIMITS = {"flash_fwd": {"out_row_rel": 1e-2},
+              "flash_bwd_dq": {"dq_row_rel": 1e-2, "dq_row_rel_p90": 1e-4},
+              "flash_bwd_dkv": {"dk_row_rel": 1e-2, "dk_row_rel_p90": 1e-4,
+                                "dv_row_rel": 1e-3}}
+
+
+def phase_mla_kernels(dev, bh: int = 64, s: int = 8192,
+                      held: int = 2) -> dict:
+    """K1-K3 at multi-head latent attention's widths (q and k 192, v 128)
+    at the Moonlight cell's shape, s 8192, bf16, causal. First ``held``
+    heads against the plain versions (each head's plain (s, s) float32
+    scores take 268 MB), within ``MLA_LIMITS``; the phase fails on any
+    miss. Then, at the cell's bh 64, each kernel's time from CUDA events
+    over 10 launches, its bound (unmasked pairs, each input read and each
+    output written once), the block's threads and shared memory, and the
+    library's yardstick (``scaled_dot_product_attention``, forward and
+    forward + backward, which the port never calls). Alone on the card:
+    ``python3 chip_smoke.py --mla-kernels``."""
+    from horovod_tpu_torch.ops import _build, flash
+    dqk, dv = 192, 128
+    flash.reset_launch_counts()
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, carries, lse, dout, D = _block_inputs(
+        g, dev, torch.bfloat16, held, s, s, dqk, 0, 0, True, dv=dv)
+    fwd = flash.block_attend(q, k, v, 0, 0, True, *carries)
+    plain = by_slice(flash.attend_plain, q, k, v, 0, 0, True, *carries)
+    errs = {"flash_fwd": _fwd_errs(fwd, plain)}
+    del fwd, plain
+    args = (q, k, v, lse, dout, D, 0, 0, True)
+    got = flash.flash_block_grads(*args)
+    want = by_slice(flash.plain_block_grads, *args)
+    errs["flash_bwd_dq"] = _dq_errs(got[0], want[0], s, s, 0, 0, True)
+    errs["flash_bwd_dkv"] = _dkv_errs(got[1:], want[1:])
+    del got, want
+    torch.cuda.synchronize()
+    where = f"mla_kernels bh={held} s={s} d={dqk}/{dv} bf16 causal"
+    failed = [f for n, e in errs.items()
+              for f in _failures(n, e, where, limits=MLA_LIMITS)]
+    ran = dict(flash.launches)
+    require(all(ran.values()), f"{where}: a kernel did not launch: {ran}")
+    require(not failed, f"K1-K3 at {dqk}/{dv} disagree with their plain "
+            f"versions: {failed}")
+    out = {"errors": errs}
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = (torch.randn(bh, s, dqk, device=dev, generator=g)
+         / dqk ** 0.5).bfloat16()
+    k = torch.randn(bh, s, dqk, device=dev, generator=g).bfloat16()
+    v = torch.randn(bh, s, dv, device=dev, generator=g).bfloat16()
+    carries = (torch.full((bh, s, 1), flash.NEG_INF, device=dev),
+               torch.zeros((bh, s, 1), device=dev),
+               torch.zeros((bh, s, dv), device=dev))
+    m, l, acc = flash.block_attend(q, k, v, 0, 0, True, *carries)
+    l = l.clamp_min(1e-30)
+    dout = torch.randn(bh, s, dv, device=dev, generator=g)
+    args = (q, k, v, m + torch.log(l), dout,
+            (dout * acc / l).sum(-1, keepdim=True), 0, 0, True)
+    pairs = bh * unmasked_pairs(s, s, 0, 0, True)
+    qkv = bh * s * (2 * dqk + dv) * 2
+    grad_in = qkv + bh * s * (dv + 2) * 4
+    runs = {"flash_fwd": (lambda: flash.block_attend(q, k, v, 0, 0, True,
+                                                     *carries),
+                          2 * (dqk + dv), qkv + 2 * bh * s * (dv + 2) * 4),
+            "flash_bwd_dq": (lambda: flash._launch_bwd_dq(*args),
+                             4 * dqk + 2 * dv, grad_in + bh * s * dqk * 4),
+            "flash_bwd_dkv": (lambda: flash._launch_bwd_dkv(*args),
+                              4 * (dqk + dv),
+                              grad_in + bh * s * (dqk + dv) * 4)}
+    for name, (fn, per_pair, nbytes) in runs.items():
+        ms = time_ms(fn, 10)
+        bound_ms, by = bound(per_pair * pairs, nbytes, torch.bfloat16)
+        threads, smem = _launch_config(_build.load(name), name, dqk, True)
+        out[name] = {"ms": ms, "bound_ms": bound_ms, "bound_by": by,
+                     "threads": threads, "smem": smem}
+        print(f"[mla_kernels] {name}: {ms:.3f} ms, bound {bound_ms:.3f} ms "
+              f"by {by}, {threads} threads, {smem} B shared memory")
+    F = torch.nn.functional
+    q4, k4 = (t.view(4, bh // 4, s, dqk).detach().requires_grad_()
+              for t in (q, k))
+    v4 = v.view(4, bh // 4, s, dv).detach().requires_grad_()
+    sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    o4 = sdpa()
+    go = torch.randn_like(o4)
+    out["library_fwd_ms"] = time_ms(sdpa, 10)
+    out["library_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        sdpa(), (q4, k4, v4), go), 5)
+    print(f"[mla_kernels] library: forward {out['library_fwd_ms']:.3f} ms, "
+          f"forward and backward {out['library_fwd_bwd_ms']:.3f} ms")
+    return out
 
 
 def phase_reference(dev):
@@ -3509,7 +3610,8 @@ def main(argv) -> int:
     torch.cuda.set_device(dev)
     children = {CONVNET_TWINS_FLAG: convnet_twins,
                 LONG_CONTEXT_FLAG: long_context,
-                BATCH_NORM_FLAG: phase_batch_norm}
+                BATCH_NORM_FLAG: phase_batch_norm,
+                MLA_KERNELS_FLAG: phase_mla_kernels}
     if len(argv) == 1 and argv[0] in children:  # a child of run_child
         print(json.dumps(children[argv[0]](dev)))
         return 0
@@ -3532,6 +3634,7 @@ def main(argv) -> int:
     timed("build", phase_build)
     edges = timed("tile edges", phase_tile_edges, dev)
     rows = timed("kernels", phase_kernels, dev)
+    mla = timed("mla kernels", phase_mla_kernels, dev)
     batch_norm = timed("batch norm", phase_batch_norm, dev)
     timed("reference", phase_reference, dev)
     launches, k2_launches, trainer = timed("trainer", phase_trainer, dev)
@@ -3590,6 +3693,7 @@ def main(argv) -> int:
     print(json.dumps({"launch": launch, "elastic": elastic}))
     print(json.dumps({"autoscale": autoscale, "ray": ray, "spark": spark}))
     print(json.dumps({"kernels": rows}))
+    print(json.dumps({"mla_kernels": mla}))
     print(json.dumps(batch_norm))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,10 @@
 //   live key get zeros.
 // The fp32 instantiation (flash_bwd_dq_kernel) keeps the first version's
 // design: fp32 FMAs from shared memory, 64 x 64 tiles, 256 threads.
+// Multi-head latent attention (q and k 192 wide, v and dO 128; bf16 only):
+// the d = 128 design (one consumer warpgroup, a two-stage ring), with s
+// over 12 k16 steps, dp over 8 and dq an m64n192 accumulator (96
+// registers a thread); 152 KB of shared memory a block.
 #include "flash_common.cuh"
 #include "flash_tc.cuh"
 
@@ -153,42 +157,45 @@ cudaError_t run_f32(const void* q, const void* k, const void* v,
 namespace dq_tc {
 
 // Shared memory, in bytes from a 1024-aligned base: the Q tile, the three
-// bf16 parts of dO (each laid out as the Q tile), the K and V rings, then
-// the barriers (q_full, full[STAGES], empty[STAGES]).
-template <int D>
+// bf16 parts of dO (each laid out as a tile of DV columns), the K and V
+// rings, then the barriers (q_full, full[STAGES], empty[STAGES]). DQK is
+// the head width of q and k, DV that of v and dO.
+template <int DQK, int DV = DQK>
 struct Cfg {
-  static constexpr int NWG = D == 64 ? 2 : 1;     // consumer warpgroups
-  static constexpr int TQ = NWG * 64;             // query rows per block
-  static constexpr int TK = 64;                   // keys per ring tile
-  static constexpr int STAGES = D == 64 ? 3 : 2;  // K/V ring depth
-  static constexpr int THREADS = NWG * 128 + 32;  // + one producer warp
-  static constexpr int PARTS = 3;                 // dO = hi + mid + lo, bf16
-  static constexpr int Q_BYTES = TQ * D * 2;      // also each part of dO
-  static constexpr int KV_BYTES = TK * D * 2;     // one K or V tile
+  static constexpr int NWG = DQK == 64 ? 2 : 1;     // consumer warpgroups
+  static constexpr int TQ = NWG * 64;               // query rows per block
+  static constexpr int TK = 64;                     // keys per ring tile
+  static constexpr int STAGES = DQK == 64 ? 3 : 2;  // K/V ring depth
+  static constexpr int THREADS = NWG * 128 + 32;    // + one producer warp
+  static constexpr int PARTS = 3;                   // dO = hi + mid + lo, bf16
+  static constexpr int Q_BYTES = TQ * DQK * 2;
+  static constexpr int PART_BYTES = TQ * DV * 2;    // each part of dO
+  static constexpr int K_BYTES = TK * DQK * 2;      // one K tile
+  static constexpr int V_BYTES = TK * DV * 2;       // one V tile
   static constexpr int Q = 0;
-  static constexpr int HI = Q_BYTES;              // then mid and lo
-  static constexpr int K = HI + PARTS * Q_BYTES;
-  static constexpr int V = K + STAGES * KV_BYTES;
-  static constexpr int BAR = V + STAGES * KV_BYTES;
+  static constexpr int HI = Q_BYTES;                // then mid and lo
+  static constexpr int K = HI + PARTS * PART_BYTES;
+  static constexpr int V = K + STAGES * K_BYTES;
+  static constexpr int BAR = V + STAGES * V_BYTES;
   static constexpr int TOTAL = BAR + (1 + 2 * STAGES) * 8 + 1024;  // + align
 };
 
-// Split dO rows qw .. qw + 63 (of the bh's (sq, D) matrix; rows at or past
+// Split dO rows qw .. qw + 63 (of the bh's (sq, DV) matrix; rows at or past
 // sq read as zeros) into bf16 parts (x = the sum of the parts), written
 // into rows row0 .. row0 + 63 of the part tiles in the swizzled layout, one
 // 16-byte chunk of each part (8 columns) at a time; thread t of 128.
-template <int D>
+template <int DQK, int DV>
 __device__ __forceinline__ void split_dout(uint8_t* parts,
                                            const float* __restrict__ dout,
                                            int qw, int sq, int row0, int t) {
-  using C = Cfg<D>;
+  using C = Cfg<DQK, DV>;
 #pragma unroll 1
-  for (int c = t; c < 64 * D / 8; c += 128) {
-    const int r = c / (D / 8), ch = c % (D / 8);
+  for (int c = t; c < 64 * DV / 8; c += 128) {
+    const int r = c / (DV / 8), ch = c % (DV / 8);
     float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
     if (qw + r < sq) {
-      const float4* src =
-          reinterpret_cast<const float4*>(dout + (size_t)(qw + r) * D + 8 * ch);
+      const float4* src = reinterpret_cast<const float4*>(
+          dout + (size_t)(qw + r) * DV + 8 * ch);
       x0 = __ldg(src);
       x1 = __ldg(src + 1);
     }
@@ -208,7 +215,7 @@ __device__ __forceinline__ void split_dout(uint8_t* parts,
     const int off = (ch / 8) * C::TQ * 128 + tc::swizzled(row0 + r, ch % 8);
 #pragma unroll
     for (int k = 0; k < C::PARTS; ++k)
-      *reinterpret_cast<uint4*>(parts + k * C::Q_BYTES + off) =
+      *reinterpret_cast<uint4*>(parts + k * C::PART_BYTES + off) =
           make_uint4(part[k][0], part[k][1], part[k][2], part[k][3]);
   }
 }
@@ -222,18 +229,21 @@ __device__ __forceinline__ int live_tiles(int last, int sk, int qpos0,
   return lim < 0 ? 0 : (int)min((long long)n, lim / tk + 1);
 }
 
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::THREADS, 1) flash_bwd_dq_tc_kernel(
-    const __grid_constant__ CUtensorMap qmap,
-    const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, const float* __restrict__ lse,
-    const float* __restrict__ dsum, const float* __restrict__ dout,
-    float* __restrict__ dq, int sq, int sk, int qpos0, int kpos0,
-    int causal) {
+template <int DQK, int DV>
+__global__ void __launch_bounds__(Cfg<DQK, DV>::THREADS, 1)
+    flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ dsum,
+                           const float* __restrict__ dout,
+                           float* __restrict__ dq, int sq, int sk, int qpos0,
+                           int kpos0, int causal) {
   using namespace tc;
-  using C = Cfg<D>;
+  using C = Cfg<DQK, DV>;
   constexpr int NWG = C::NWG, TQ = C::TQ, TK = C::TK, STAGES = C::STAGES;
-  constexpr int PANELS = D / 64, KSTEPS = D / 16;
+  constexpr int QK_PANELS = DQK / 64, V_PANELS = DV / 64;
+  constexpr int QK_STEPS = DQK / 16, V_STEPS = DV / 16;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::BAR);
@@ -258,19 +268,19 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1) flash_bwd_dq_tc_kernel(
   if (tid >= NWG * 128) {  // the producer warp: one thread issues the TMA
     if (tid == NWG * 128 && n_tiles > 0) {
       mbar_arrive_expect_tx(q_full, C::Q_BYTES);
-      for (int p = 0; p < PANELS; ++p)
+      for (int p = 0; p < QK_PANELS; ++p)
         tma_load_3d(smem + C::Q + p * TQ * 128, &qmap, q_full, p * 64, q0,
                     bh);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % STAGES;
         mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
-        mbar_arrive_expect_tx(&full[s], 2 * C::KV_BYTES);
-        for (int p = 0; p < PANELS; ++p) {
-          tma_load_3d(smem + C::K + s * C::KV_BYTES + p * TK * 128, &kmap,
+        mbar_arrive_expect_tx(&full[s], C::K_BYTES + C::V_BYTES);
+        for (int p = 0; p < QK_PANELS; ++p)
+          tma_load_3d(smem + C::K + s * C::K_BYTES + p * TK * 128, &kmap,
                       &full[s], p * 64, t * TK, bh);
-          tma_load_3d(smem + C::V + s * C::KV_BYTES + p * TK * 128, &vmap,
+        for (int p = 0; p < V_PANELS; ++p)
+          tma_load_3d(smem + C::V + s * C::V_BYTES + p * TK * 128, &vmap,
                       &full[s], p * 64, t * TK, bh);
-        }
       }
     }
     return;
@@ -287,7 +297,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1) flash_bwd_dq_tc_kernel(
   const int n_wg = qw >= sq ? 0
                             : live_tiles(min(qw + 64, sq) - 1, sk, qpos0,
                                          kpos0, causal, TK);
-  float lse_r[2], d_r[2], acc[D / 2];
+  float lse_r[2], d_r[2], acc[DQK / 2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + 8 * h;
@@ -295,10 +305,11 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1) flash_bwd_dq_tc_kernel(
     d_r[h] = r < sq ? dsum[rows + r] : 0.f;
   }
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int e = 0; e < DQK / 2; ++e) acc[e] = 0.f;
 
   if (n_wg > 0) {
-    split_dout<D>(smem + C::HI, dout + rows * D, qw, sq, wg * 64, tid % 128);
+    split_dout<DQK, DV>(smem + C::HI, dout + rows * DV, qw, sq, wg * 64,
+                        tid % 128);
     fence_proxy_async();               // the threads' writes, seen by wgmma
     named_barrier_sync(1 + wg, 128);   // the warpgroup's parts are all in
     mbar_wait(q_full, 0);
@@ -309,8 +320,8 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1) flash_bwd_dq_tc_kernel(
   for (int t = 0; t < n_wg; ++t) {
     const int s = t % STAGES, k0 = t * TK;
     mbar_wait(&full[s], (t / STAGES) & 1);
-    const uint32_t k_tile = smem_u32(smem + C::K + s * C::KV_BYTES);
-    const uint32_t v_tile = smem_u32(smem + C::V + s * C::KV_BYTES);
+    const uint32_t k_tile = smem_u32(smem + C::K + s * C::K_BYTES);
+    const uint32_t v_tile = smem_u32(smem + C::V + s * C::V_BYTES);
     // only the diagonal and ragged-edge tiles evaluate the masking rule
     const bool masked =
         qw + 64 > sq || k0 + TK > sk ||
@@ -322,15 +333,15 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1) flash_bwd_dq_tc_kernel(
     for (int e = 0; e < TK / 2; ++e) sc[e] = dp[e] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk)
+    for (int kk = 0; kk < QK_STEPS; ++kk)
       wgmma_ss(sc, desc_k(q_tile, TQ, wg * 64, kk), desc_k(k_tile, TK, 0, kk),
                kk > 0);
     wgmma_commit();
 #pragma unroll
     for (int part = 0; part < C::PARTS; ++part)
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        wgmma_ss(dp, desc_k(hi_tile + part * C::Q_BYTES, TQ, wg * 64, kk),
+      for (int kk = 0; kk < V_STEPS; ++kk)
+        wgmma_ss(dp, desc_k(hi_tile + part * C::PART_BYTES, TQ, wg * 64, kk),
                  desc_k(v_tile, TK, 0, kk), part + kk > 0);
     wgmma_commit();
     wgmma_wait<1>();  // s
@@ -378,29 +389,29 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1) flash_bwd_dq_tc_kernel(
     const int r = r0 + 8 * h;
     if (r >= sq) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(dq + (rows + r) * D + 8 * j + 2 * t4) =
+    for (int j = 0; j < DQK / 8; ++j)
+      *reinterpret_cast<float2*>(dq + (rows + r) * DQK + 8 * j + 2 * t4) =
           make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   }
 }
 
-template <int D>
+template <int DQK, int DV = DQK>
 cudaError_t run(const void* q, const void* k, const void* v, const float* lse,
                 const float* dsum, const float* dout, float* dq, int bh,
                 int sq, int sk, int qpos0, int kpos0, int causal,
                 cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Cfg<DQK, DV>;
   // dO is read as float4, as TMA reads the other operands: 16-byte aligned
   if (reinterpret_cast<uintptr_t>(dout) % 16 != 0)
     return cudaErrorInvalidValue;
   CUtensorMap qmap, kmap, vmap;
   cudaError_t e;
-  if ((e = tc::make_map(&qmap, q, true, D, sq, bh, 64, C::TQ, true)) ||
-      (e = tc::make_map(&kmap, k, true, D, sk, bh, 64, C::TK, true)) ||
-      (e = tc::make_map(&vmap, v, true, D, sk, bh, 64, C::TK, true)))
+  if ((e = tc::make_map(&qmap, q, true, DQK, sq, bh, 64, C::TQ, true)) ||
+      (e = tc::make_map(&kmap, k, true, DQK, sk, bh, 64, C::TK, true)) ||
+      (e = tc::make_map(&vmap, v, true, DV, sk, bh, 64, C::TK, true)))
     return e;
   const dim3 grid(bh, (sq + C::TQ - 1) / C::TQ);
-  return launch(flash_bwd_dq_tc_kernel<D>, grid, C::THREADS, C::TOTAL,
+  return launch(flash_bwd_dq_tc_kernel<DQK, DV>, grid, C::THREADS, C::TOTAL,
                 stream, qmap, kmap, vmap, lse, dsum, dout, dq, sq, sk, qpos0,
                 kpos0, causal);
 }
@@ -408,36 +419,44 @@ cudaError_t run(const void* q, const void* k, const void* v, const float* lse,
 }  // namespace dq_tc
 }  // namespace hvdflash
 
-// Threads and dynamic shared memory per block at head dim d (0: not built
-// for d).
+// Threads and dynamic shared memory per block at q/k head width d (0: not
+// built for d); d = 192 is the multi-head latent attention pair, v 128,
+// built for bf16 only.
 extern "C" void hvd_flash_bwd_dq_config(int d, int is_bf16, int* threads,
                                         int* smem) {
   using namespace hvdflash;
   const bool bf = is_bf16 != 0;
   *threads = !bf ? NT
+             : d == 192 ? dq_tc::Cfg<192, 128>::THREADS
              : d == 128 ? dq_tc::Cfg<128>::THREADS
                         : dq_tc::Cfg<64>::THREADS;
   *smem = d == 64    ? (bf ? dq_tc::Cfg<64>::TOTAL : smem_bytes<64>())
           : d == 128 ? (bf ? dq_tc::Cfg<128>::TOTAL : smem_bytes<128>())
-                     : 0;
+          : d == 192 && bf ? dq_tc::Cfg<192, 128>::TOTAL
+                           : 0;
 }
 
-// q (bh, sq, d), k/v (bh, sk, d), all bf16 (is_bf16) or fp32; lse and
-// dsum = rowsum(dout * out) (bh, sq) fp32; dout (bh, sq, d) fp32;
-// dq (bh, sq, d) fp32 out.
+// q (bh, sq, d), k (bh, sk, d), v (bh, sk, dv), all bf16 (is_bf16) or fp32;
+// lse and dsum = rowsum(dout * out) (bh, sq) fp32; dout (bh, sq, dv) fp32;
+// dq (bh, sq, d) fp32 out. (d, dv) as hvd_flash_fwd.
 extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const float* lse, const float* dsum,
                                 const float* dout, float* dq, int bh, int sq,
-                                int sk, int d, int qpos0, int kpos0,
+                                int sk, int d, int dv, int qpos0, int kpos0,
                                 int causal, int is_bf16, void* stream) {
   using namespace hvdflash;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // query rows per block of the design that runs: the grid's y extent
   const int rows = !is_bf16 ? BQ
+                   : d == 192 ? dq_tc::Cfg<192, 128>::TQ
                    : d == 128 ? dq_tc::Cfg<128>::TQ
                               : dq_tc::Cfg<64>::TQ;
   if (bh < 1 || sq < 1 || sk < 1 || (sq + rows - 1) / rows > 65535)
     return (int)cudaErrorInvalidValue;
+  if (d == 192 && dv == 128 && is_bf16)
+    return (int)dq_tc::run<192, 128>(q, k, v, lse, dsum, dout, dq, bh, sq,
+                                     sk, qpos0, kpos0, causal, s);
+  if (dv != d) return (int)cudaErrorInvalidValue;
   if (d == 64 && is_bf16)
     return (int)dq_tc::run<64>(q, k, v, lse, dsum, dout, dq, bh, sq, sk,
                                qpos0, kpos0, causal, s);

@@ -35,6 +35,10 @@
 //   evaluate the masking rule `keep`, and the loop stops at the diagonal.
 // The fp32 instantiation (flash_fwd_kernel) keeps the first version's
 // design: fp32 FMAs from shared memory, 64 x 64 tiles, 256 threads.
+// Multi-head latent attention (q and k 192 wide, v 128; bf16 only): the
+// same design, the Q and K tiles three 64-column panels wide and V two, 64
+// keys a ring tile; s takes 12 k16 steps and p . v 4, acc 64 registers a
+// thread as at d = 128. 131 KB of shared memory a block.
 #include "flash_common.cuh"
 #include "flash_tc.cuh"
 
@@ -167,23 +171,26 @@ constexpr int TQ = NWG * 64;       // query rows per block
 constexpr int THREADS = NWG * 128 + 32;  // + one producer warp
 
 // Shared memory, in bytes from a 1024-aligned base: the Q tile, the K and V
-// rings, then the barriers (q_full, full[STAGES], empty[STAGES]).
-template <int D>
+// rings, then the barriers (q_full, full[STAGES], empty[STAGES]). DQK is
+// the head width of q and k, DV that of v (equal, or 192 / 128 for
+// multi-head latent attention).
+template <int DQK, int DV = DQK>
 struct Smem {
   // keys a ring tile: 128 at d = 64 (fewer barrier and product round trips
-  // a key); 64 at d = 128, where acc takes 64 registers a thread already
-  static constexpr int TK = D == 64 ? 128 : 64;
+  // a key); 64 at d = 128 and 192, where acc takes 64 registers a thread
+  static constexpr int TK = DQK == 64 ? 128 : 64;
   static constexpr int STAGES = 2;  // K/V ring depth
-  static constexpr int Q_BYTES = TQ * D * 2;
-  static constexpr int KV_BYTES = TK * D * 2;  // one K or V tile
+  static constexpr int Q_BYTES = TQ * DQK * 2;
+  static constexpr int K_BYTES = TK * DQK * 2;  // one K tile
+  static constexpr int V_BYTES = TK * DV * 2;   // one V tile
   static constexpr int Q = 0;
   static constexpr int K = Q + Q_BYTES;
-  static constexpr int V = K + STAGES * KV_BYTES;
-  static constexpr int BAR = V + STAGES * KV_BYTES;
+  static constexpr int V = K + STAGES * K_BYTES;
+  static constexpr int BAR = V + STAGES * V_BYTES;
   static constexpr int TOTAL = BAR + (1 + 2 * STAGES) * 8 + 1024;  // + align
 };
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
@@ -193,9 +200,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
     float* __restrict__ acc_out, int sq, int sk, int qpos0, int kpos0,
     int causal) {
   using namespace tc;
-  using S = Smem<D>;
+  using S = Smem<DQK, DV>;
   constexpr int TK = S::TK, STAGES = S::STAGES;
-  constexpr int PANELS = D / 64, KSTEPS = D / 16;
+  constexpr int QK_PANELS = DQK / 64, V_PANELS = DV / 64, KSTEPS = DQK / 16;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BAR);
@@ -225,19 +232,19 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
   if (tid >= NWG * 128) {  // the producer warp: one thread issues the TMA
     if (tid == NWG * 128 && n_tiles > 0) {
       mbar_arrive_expect_tx(q_full, S::Q_BYTES);
-      for (int p = 0; p < PANELS; ++p)
+      for (int p = 0; p < QK_PANELS; ++p)
         tma_load_3d(smem + S::Q + p * TQ * 128, &qmap, q_full, p * 64, q0,
                     bh);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % STAGES;
         mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
-        mbar_arrive_expect_tx(&full[s], 2 * S::KV_BYTES);
-        for (int p = 0; p < PANELS; ++p) {
-          tma_load_3d(smem + S::K + s * S::KV_BYTES + p * TK * 128, &kmap,
+        mbar_arrive_expect_tx(&full[s], S::K_BYTES + S::V_BYTES);
+        for (int p = 0; p < QK_PANELS; ++p)
+          tma_load_3d(smem + S::K + s * S::K_BYTES + p * TK * 128, &kmap,
                       &full[s], p * 64, t * TK, bh);
-          tma_load_3d(smem + S::V + s * S::KV_BYTES + p * TK * 128, &vmap,
+        for (int p = 0; p < V_PANELS; ++p)
+          tma_load_3d(smem + S::V + s * S::V_BYTES + p * TK * 128, &vmap,
                       &full[s], p * 64, t * TK, bh);
-        }
       }
     }
     return;
@@ -249,7 +256,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
   const int t4 = lane % 4;
   const int r0 = q0 + wg * 64 + warp * 16 + lane / 4;
   const size_t rows = (size_t)bh * sq;
-  float m[2], l[2], o[D / 2];
+  float m[2], l[2], o[DV / 2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + 8 * h;
@@ -258,9 +265,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
     // l is summed over the quad at the end: its first thread carries l_in
     l[h] = ok && t4 == 0 ? l_in[rows + r] : 0.f;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const float2 a =
-          ok ? *reinterpret_cast<const float2*>(acc_in + (rows + r) * D +
+          ok ? *reinterpret_cast<const float2*>(acc_in + (rows + r) * DV +
                                                 8 * j + 2 * t4)
              : make_float2(0.f, 0.f);
       o[4 * j + 2 * h] = a.x;
@@ -274,8 +281,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % STAGES, k0 = t * TK;
     mbar_wait(&full[s], (t / STAGES) & 1);
-    const uint32_t k_tile = smem_u32(smem + S::K + s * S::KV_BYTES);
-    const uint32_t v_tile = smem_u32(smem + S::V + s * S::KV_BYTES);
+    const uint32_t k_tile = smem_u32(smem + S::K + s * S::K_BYTES);
+    const uint32_t v_tile = smem_u32(smem + S::V + s * S::V_BYTES);
+    uint32_t qt = q_tile;
+    // at 192 / 128, opaque to the compiler, so that it builds Q's twelve
+    // descriptors in each iteration rather than holding them across the
+    // loop (they spill past the 168 registers a thread has otherwise)
+    if constexpr (DQK != DV) asm volatile("" : "+r"(qt));
 
     float sc[TK / 2];
 #pragma unroll
@@ -283,7 +295,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk)
-      wgmma_ss(sc, desc_k(q_tile, TQ, wg * 64, kk), desc_k(k_tile, TK, 0, kk),
+      wgmma_ss(sc, desc_k(qt, TQ, wg * 64, kk), desc_k(k_tile, TK, 0, kk),
                kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
@@ -327,7 +339,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + rs[h];
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) o[e] *= corr[(e % 4) / 2];
+    for (int e = 0; e < DV / 2; ++e) o[e] *= corr[(e % 4) / 2];
 
     uint32_t a[TK / 16][4];  // p in bf16, the A operand of p . v
 #pragma unroll
@@ -356,25 +368,26 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
       l_out[rows + r] = l[h];
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(acc_out + (rows + r) * D + 8 * j + 2 * t4) =
+    for (int j = 0; j < DV / 8; ++j)
+      *reinterpret_cast<float2*>(acc_out + (rows + r) * DV + 8 * j + 2 * t4) =
           make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
   }
 }
 
-template <int D>
+template <int DQK, int DV = DQK>
 cudaError_t run(const void* q, const void* k, const void* v, const float* m,
                 const float* l, const float* acc, float* mo, float* lo,
                 float* acco, int bh, int sq, int sk, int qpos0, int kpos0,
                 int causal, cudaStream_t stream) {
+  using S = Smem<DQK, DV>;
   CUtensorMap qmap, kmap, vmap;
   cudaError_t e;
-  if ((e = tc::make_map(&qmap, q, true, D, sq, bh, 64, TQ, true)) ||
-      (e = tc::make_map(&kmap, k, true, D, sk, bh, 64, Smem<D>::TK, true)) ||
-      (e = tc::make_map(&vmap, v, true, D, sk, bh, 64, Smem<D>::TK, true)))
+  if ((e = tc::make_map(&qmap, q, true, DQK, sq, bh, 64, TQ, true)) ||
+      (e = tc::make_map(&kmap, k, true, DQK, sk, bh, 64, S::TK, true)) ||
+      (e = tc::make_map(&vmap, v, true, DV, sk, bh, 64, S::TK, true)))
     return e;
   const dim3 grid(bh, (sq + TQ - 1) / TQ);
-  return launch(flash_fwd_tc_kernel<D>, grid, THREADS, Smem<D>::TOTAL,
+  return launch(flash_fwd_tc_kernel<DQK, DV>, grid, THREADS, S::TOTAL,
                 stream, qmap, kmap, vmap, m, l, acc, mo, lo, acco, sq,
                 sk, qpos0, kpos0, causal);
 }
@@ -382,8 +395,9 @@ cudaError_t run(const void* q, const void* k, const void* v, const float* m,
 }  // namespace fwd_tc
 }  // namespace hvdflash
 
-// Threads and dynamic shared memory per block at head dim d (0: not built
-// for d).
+// Threads and dynamic shared memory per block at q/k head width d (0: not
+// built for d); d = 192 is the multi-head latent attention pair, v 128,
+// built for bf16 only.
 extern "C" void hvd_flash_fwd_config(int d, int is_bf16, int* threads,
                                      int* smem) {
   using namespace hvdflash;
@@ -391,20 +405,27 @@ extern "C" void hvd_flash_fwd_config(int d, int is_bf16, int* threads,
   *threads = bf ? fwd_tc::THREADS : NT;
   *smem = d == 64    ? (bf ? fwd_tc::Smem<64>::TOTAL : smem_bytes<64>())
           : d == 128 ? (bf ? fwd_tc::Smem<128>::TOTAL : smem_bytes<128>())
-                     : 0;
+          : d == 192 && bf ? fwd_tc::Smem<192, 128>::TOTAL
+                           : 0;
 }
 
-// q (bh, sq, d) pre-scaled, k/v (bh, sk, d), all bf16 (is_bf16) or fp32;
-// m/l (bh, sq) and acc (bh, sq, d) fp32 in; mo/lo/acco the same shapes out.
+// q (bh, sq, d) pre-scaled, k (bh, sk, d), v (bh, sk, dv), all bf16
+// (is_bf16) or fp32; m/l (bh, sq) and acc (bh, sq, dv) fp32 in; mo/lo/acco
+// the same shapes out. (d, dv): (64, 64) and (128, 128), bf16 or fp32;
+// (192, 128) bf16.
 extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
                              const float* m, const float* l, const float* acc,
                              float* mo, float* lo, float* acco, int bh, int sq,
-                             int sk, int d, int qpos0, int kpos0, int causal,
-                             int is_bf16, void* stream) {
+                             int sk, int d, int dv, int qpos0, int kpos0,
+                             int causal, int is_bf16, void* stream) {
   using namespace hvdflash;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh < 1 || sq < 1 || sk < 1 || (sq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
+  if (d == 192 && dv == 128 && is_bf16)
+    return (int)fwd_tc::run<192, 128>(q, k, v, m, l, acc, mo, lo, acco, bh,
+                                      sq, sk, qpos0, kpos0, causal, s);
+  if (dv != d) return (int)cudaErrorInvalidValue;
   if (d == 64 && is_bf16)
     return (int)fwd_tc::run<64>(q, k, v, m, l, acc, mo, lo, acco, bh, sq, sk,
                                 qpos0, kpos0, causal, s);

@@ -27,7 +27,9 @@ the fusion and plan machinery's: flushes by trigger and tenant, pending
 bytes, the executor's in-flight depth, the QoS gate's waits, grants,
 shares, sheds and quota blocks, the step capture's phase and events, and
 the dispatch plan cache's hits by source, misses, invalidations,
-evictions, negotiation skips and builds.
+evictions, negotiation skips and builds. Beside them, the port's own
+(:data:`PORT_ONLY`): the dropless expert layer's rows a held expert and
+imbalance, tallied on the device and read only when the registry is.
 
 With ``HVD_METRICS=0`` every instrument not marked ``always`` records
 nothing (one cached bool). The retry counters are ``always``: they back
@@ -519,6 +521,59 @@ CKPT_DEGRADED_RESTORES = counter(
     labels=("reason",))
 
 
+# -- the dropless expert layer (parallel/moe.py), the port's own -----------
+MOE_EXPERT_ROWS = counter(
+    "hvd_moe_expert_rows_total",
+    "Token rows the dropless expert layer routed to each expert it holds, "
+    "by layer and global expert index (tallied on the device, read when "
+    "the registry is read).",
+    labels=("layer", "expert"))
+MOE_EXPERT_IMBALANCE = gauge(
+    "hvd_moe_expert_imbalance",
+    "The held expert with the most routed rows over the mean of the held "
+    "experts, by layer, over the rows tallied so far (1 is even).",
+    labels=("layer",))
+# instruments the JAX package has no counterpart of
+PORT_ONLY = frozenset({MOE_EXPERT_ROWS.name, MOE_EXPERT_IMBALANCE.name})
+
+# (layer, first held expert) -> rows per held expert, a device tensor
+_tallies: dict = {}
+
+
+def tally_expert_rows(layer: str, first: int, rows) -> None:
+    """Add ``rows`` (a tensor, one count per held expert, experts ``first``
+    on) to ``layer``'s tally of :data:`MOE_EXPERT_ROWS`. The sum stays on
+    the tensor's device: nothing here waits for it. It is read, and the
+    gauge set, when the registry is next read (:func:`snapshot`,
+    :func:`dump`, :func:`prometheus_text`)."""
+    if not MOE_EXPERT_ROWS._on():
+        return
+    with _mu:  # the add is queued on the device, not waited for
+        cur = _tallies.get((layer, first))
+        if cur is None:
+            _tallies[layer, first] = rows.detach().clone()
+        else:
+            cur += rows.detach()
+
+
+def _settle_tallies() -> None:
+    """Move the device tallies into the series (the one place that waits
+    for the device) and set each tallied layer's imbalance."""
+    with _mu:
+        pending = list(_tallies.items())
+        _tallies.clear()
+    for (layer, first), rows in pending:
+        for i, n in enumerate(rows.tolist()):
+            MOE_EXPERT_ROWS.inc(n, labels={"layer": layer,
+                                           "expert": first + i})
+    for layer in sorted({layer for (layer, _), _ in pending}):
+        got = [v for k, v in MOE_EXPERT_ROWS.series().items()
+               if dict(k)["layer"] == layer]
+        mean = sum(got) / len(got)
+        MOE_EXPERT_IMBALANCE.set(max(got) / mean if mean > 0 else 1.0,
+                                 labels={"layer": layer})
+
+
 # --------------------------------------------------------------------------
 # snapshot, delta, exposition
 # --------------------------------------------------------------------------
@@ -526,6 +581,7 @@ CKPT_DEGRADED_RESTORES = counter(
 def snapshot() -> dict:
     """A flat copy: ``{(name, label items): value}``; a histogram gives
     ``name_sum`` and ``name_count`` entries, so deltas stay numbers."""
+    _settle_tallies()
     with _mu:
         items = list(_values.items())
     out: dict = {}
@@ -568,6 +624,7 @@ def _labelled(labelitems, rank: str) -> tuple:
 
 def _exposed() -> list:
     """``[(name, label items with the rank, value)]`` of every series."""
+    _settle_tallies()
     rank = _process_rank_label()
     with _mu:
         items = list(_values.items())
@@ -733,6 +790,7 @@ def stop_serving() -> None:
 
 
 def reset() -> None:
-    """Drop every sample; the catalog stays."""
+    """Drop every sample, device tallies too; the catalog stays."""
     with _mu:
         _values.clear()
+        _tallies.clear()

@@ -1,5 +1,6 @@
 """Models of the PyTorch port."""
 
+from .deepseek_v3 import DeepseekV3Config, DeepseekV3LM
 from .inception import InceptionV3
 from .layers import from_flax_variables
 from .resnet import ResNet, ResNet18, ResNet34, ResNet50, ResNet101, ResNet152
@@ -11,6 +12,7 @@ from .vgg import VGG, VGG16, VGG19
 __all__ = [
     "ResNet", "ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152",
     "VGG", "VGG16", "VGG19", "InceptionV3", "BatchNorm", "SyncBatchNorm",
-    "TransformerConfig", "TransformerLM", "from_flax_params",
+    "TransformerConfig", "TransformerLM", "DeepseekV3Config", "DeepseekV3LM",
+    "from_flax_params",
     "from_flax_variables", "lm_loss",
 ]

@@ -26,8 +26,12 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # head dims the kernels are built for
 _DTYPES = (torch.bfloat16, torch.float32)
+# (q/k head dim, v head dim) pairs the kernels are built for, with their
+# dtypes: equal dims 64 and 128, and multi-head latent attention's 192 / 128
+# in bf16
+WIDTHS = {(64, 64): _DTYPES, (128, 128): _DTYPES,
+          (192, 128): (torch.bfloat16,)}
 
 # Kernel launches since the last reset_launch_counts(), by kernel.
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -119,12 +123,13 @@ def plain_block_grads(q, k, v, lse, dout, D, qpos0, kpos0, causal):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # q k v m l acc mo lo acco | bh sq sk d qpos0 kpos0 causal is_bf16 | stream
-    "flash_fwd": [_P] * 9 + [_I] * 8 + [_P],
+    # q k v m l acc mo lo acco | bh sq sk d dv qpos0 kpos0 causal is_bf16 |
+    # stream
+    "flash_fwd": [_P] * 9 + [_I] * 9 + [_P],
     # q k v lse D dout dq | ...
-    "flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_P],
+    "flash_bwd_dq": [_P] * 7 + [_I] * 9 + [_P],
     # q k v lse D dout dk dv | ...
-    "flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_P],
+    "flash_bwd_dkv": [_P] * 8 + [_I] * 9 + [_P],
 }
 
 
@@ -145,25 +150,29 @@ def _offset(x) -> int:
     return x
 
 
-def _check_qkv(q, k, v, what: str) -> tuple[int, int, int, int]:
+def _check_qkv(q, k, v, what: str) -> tuple[int, int, int, int, int]:
     if not (q.dim() == k.dim() == v.dim() == 3):
         raise ValueError(f"{what}: q, k, v must be (bh, s, d)")
     bh, sq, d = q.shape
-    sk = k.shape[1]
-    if k.shape != (bh, sk, d) or v.shape != (bh, sk, d):
+    sk, dv = k.shape[1], v.shape[2]
+    if k.shape != (bh, sk, d) or v.shape != (bh, sk, dv):
         raise ValueError(f"{what}: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{what}: q, k, v must share one dtype of {_DTYPES}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {d} is not one of {HEAD_DIMS}")
+    if (d, dv) not in WIDTHS:
+        raise ValueError(f"{what}: head dims {d} (q, k) and {dv} (v) are "
+                         f"not one of {sorted(WIDTHS)}")
+    if q.dtype not in WIDTHS[d, dv]:
+        raise TypeError(f"{what}: head dims {d}/{dv} are built for "
+                        f"{WIDTHS[d, dv]} only, got {q.dtype}")
     if sq < 1 or sk < 1:
         raise ValueError(f"{what}: empty block (sq={sq}, sk={sk})")
     for t in (q, k, v):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{what}: q, k, v must be contiguous on one "
                              "device")
-    return bh, sq, sk, d
+    return bh, sq, sk, d, dv
 
 
 def _check_f32(t, shape, device, what: str, name: str) -> None:
@@ -186,15 +195,15 @@ def _on_cpu(*tensors) -> bool:
 
 
 def _launch_fwd(q, k, v, qpos0, kpos0, causal, m, l, acc):
-    bh, sq, sk, d = _check_qkv(q, k, v, "flash_fwd")
+    bh, sq, sk, d, dv = _check_qkv(q, k, v, "flash_fwd")
     for t, name, shape in ((m, "m", (bh, sq, 1)), (l, "l", (bh, sq, 1)),
-                           (acc, "acc", (bh, sq, d))):
+                           (acc, "acc", (bh, sq, dv))):
         _check_f32(t, shape, q.device, "flash_fwd", name)
     outs = (torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc))
     lib, fn = _entry("flash_fwd")
     with torch.cuda.device(q.device):
         status = fn(*(t.data_ptr() for t in (q, k, v, m, l, acc, *outs)),
-                    bh, sq, sk, d, _offset(qpos0), _offset(kpos0),
+                    bh, sq, sk, d, dv, _offset(qpos0), _offset(kpos0),
                     int(bool(causal)), int(q.dtype == torch.bfloat16),
                     torch.cuda.current_stream().cuda_stream)
     _build.check(lib, status, "flash_fwd")
@@ -203,20 +212,21 @@ def _launch_fwd(q, k, v, qpos0, kpos0, causal, m, l, acc):
 
 
 def _check_grad_inputs(q, k, v, lse, dout, D, what):
-    bh, sq, sk, d = _check_qkv(q, k, v, what)
+    bh, sq, sk, d, dv = _check_qkv(q, k, v, what)
     for t, name, shape in ((lse, "lse", (bh, sq, 1)), (D, "D", (bh, sq, 1)),
-                           (dout, "dout", (bh, sq, d))):
+                           (dout, "dout", (bh, sq, dv))):
         _check_f32(t, shape, q.device, what, name)
-    return bh, sq, sk, d
+    return bh, sq, sk, d, dv
 
 
 def _launch_bwd_dq(q, k, v, lse, dout, D, qpos0, kpos0, causal):
-    bh, sq, sk, d = _check_grad_inputs(q, k, v, lse, dout, D, "flash_bwd_dq")
+    bh, sq, sk, d, dv = _check_grad_inputs(q, k, v, lse, dout, D,
+                                           "flash_bwd_dq")
     dq = torch.empty((bh, sq, d), dtype=torch.float32, device=q.device)
     lib, fn = _entry("flash_bwd_dq")
     with torch.cuda.device(q.device):
         status = fn(*(t.data_ptr() for t in (q, k, v, lse, D, dout, dq)),
-                    bh, sq, sk, d, _offset(qpos0), _offset(kpos0),
+                    bh, sq, sk, d, dv, _offset(qpos0), _offset(kpos0),
                     int(bool(causal)), int(q.dtype == torch.bfloat16),
                     torch.cuda.current_stream().cuda_stream)
     _build.check(lib, status, "flash_bwd_dq")
@@ -225,14 +235,14 @@ def _launch_bwd_dq(q, k, v, lse, dout, D, qpos0, kpos0, causal):
 
 
 def _launch_bwd_dkv(q, k, v, lse, dout, D, qpos0, kpos0, causal):
-    bh, sq, sk, d = _check_grad_inputs(q, k, v, lse, dout, D,
-                                       "flash_bwd_dkv")
+    bh, sq, sk, d, dvw = _check_grad_inputs(q, k, v, lse, dout, D,
+                                            "flash_bwd_dkv")
     dk = torch.empty((bh, sk, d), dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((bh, sk, dvw), dtype=torch.float32, device=q.device)
     lib, fn = _entry("flash_bwd_dkv")
     with torch.cuda.device(q.device):
         status = fn(*(t.data_ptr() for t in (q, k, v, lse, D, dout, dk, dv)),
-                    bh, sq, sk, d, _offset(qpos0), _offset(kpos0),
+                    bh, sq, sk, d, dvw, _offset(qpos0), _offset(kpos0),
                     int(bool(causal)), int(q.dtype == torch.bfloat16),
                     torch.cuda.current_stream().cuda_stream)
     _build.check(lib, status, "flash_bwd_dkv")
@@ -243,8 +253,9 @@ def _launch_bwd_dkv(q, k, v, lse, dout, D, qpos0, kpos0, causal):
 def block_attend(q, k, v, qpos0, kpos0, causal, m, l, acc):
     """One flash block update: returns the new ``(m, l, acc)`` carries.
 
-    Layout: q (bh, sq, d) pre-scaled; k/v (bh, sk, d), bf16 or float32;
-    m/l (bh, sq, 1) and acc (bh, sq, d) float32; ``qpos0``/``kpos0`` the
+    Layout: q (bh, sq, d) pre-scaled; k (bh, sk, d) and v (bh, sk, dv),
+    bf16 or float32, ``(d, dv)`` one of :data:`WIDTHS`; m/l (bh, sq, 1) and
+    acc (bh, sq, dv) float32; ``qpos0``/``kpos0`` the
     int32 global token offsets of the blocks, for causal masking. The
     gradient is taken by ``_RingCore`` in ``parallel/sequence.py``,
     not through this function."""
@@ -255,9 +266,9 @@ def block_attend(q, k, v, qpos0, kpos0, causal, m, l, acc):
 
 def flash_block_grads(q, k, v, lse, dout, D, qpos0, kpos0, causal):
     """Block gradients ``(dq, dk, dv)``, float32, of one K/V block against
-    the full saved ``lse``. Shapes: q/dout (bh, sq, d); k/v (bh, sk, d);
-    lse/D (bh, sq, 1) with ``D = rowsum(dout * out)``; dout, lse and D
-    float32."""
+    the full saved ``lse``. Shapes: q (bh, sq, d); k (bh, sk, d); v (bh,
+    sk, dv); dout (bh, sq, dv); lse/D (bh, sq, 1) with ``D = rowsum(dout *
+    out)``; dout, lse and D float32."""
     if _on_cpu(q, k, v, lse, dout, D):
         return plain_block_grads(q, k, v, lse, dout, D, qpos0, kpos0, causal)
     dq = _launch_bwd_dq(q, k, v, lse, dout, D, qpos0, kpos0, causal)

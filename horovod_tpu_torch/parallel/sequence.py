@@ -235,7 +235,8 @@ def heads_to_seq(x, group=None):
 
 
 def _carries(shape, device):
-    """Fresh ``(m, l, acc)`` float32 carries for ``shape`` = (..., s, d)."""
+    """Fresh ``(m, l, acc)`` float32 carries for ``shape`` = (..., s, d),
+    ``d`` the width of v."""
     rows = (*shape[:-1], 1)
     return [torch.full(rows, NEG_INF, dtype=torch.float32, device=device),
             torch.zeros(rows, dtype=torch.float32, device=device),
@@ -248,6 +249,31 @@ def _normalize(m, l, acc):
     return acc / l_safe, m + torch.log(l_safe)
 
 
+class _KV:
+    """K and V blocks of H parts, (H, bh, c, dk) and (H, bh, c, dv), packed
+    as one (H, bh c (dk + dv)) buffer, so that one rotation moves both
+    whatever their widths: part i's K and V are contiguous views of row i."""
+
+    def __init__(self, kh, vh):
+        self.k_shape, self.v_shape = kh.shape[1:], vh.shape[1:]
+        self.nk = kh[0].numel()
+
+    def pack(self, kh, vh):
+        h = kh.shape[0]
+        return torch.cat((kh.reshape(h, -1), vh.reshape(h, -1)), 1)
+
+    def k(self, buf, i):
+        return buf[i, :self.nk].view(self.k_shape)
+
+    def v(self, buf, i):
+        return buf[i, self.nk:].view(self.v_shape)
+
+    def unpack(self, buf):
+        h = buf.shape[0]
+        return (buf[:, :self.nk].reshape(h, *self.k_shape),
+                buf[:, self.nk:].reshape(h, *self.v_shape))
+
+
 class _RingCore(torch.autograd.Function):
     """Blockwise attention around the ring of ``group`` (twin of the JAX
     ``_ring_core`` and ``_zigzag_core``): forward as ``_ring_fwd_loop``,
@@ -255,23 +281,25 @@ class _RingCore(torch.autograd.Function):
     d), half first (H = 1 for the contiguous ring and local attention, 2
     for the zigzag's halves), so that every sub-block the kernels take is
     contiguous; ``steps`` lists, for each ring step, the live ``(qi, ki,
-    qpos0, kpos0)`` (:func:`ring_schedule`, :func:`zigzag_schedule`). K and
-    V travel as one stacked buffer, dK and dV as one float32 buffer that the
-    n-th rotation takes home. Saves only ``(qh, kh, vh, out, lse)``.
-    Returns ``(out, lse)`` in float32, parts first; ``lse`` takes no
-    gradient."""
+    qpos0, kpos0)`` (:func:`ring_schedule`, :func:`zigzag_schedule`). V may
+    be narrower than q and k (multi-head latent attention). K and V travel
+    as one packed buffer (:class:`_KV`), dK and dV as one float32 buffer
+    that the n-th rotation takes home. Saves only ``(qh, kh, vh, out,
+    lse)``. Returns ``(out, lse)`` in float32, parts first, ``out`` as wide
+    as v; ``lse`` takes no gradient."""
 
     @staticmethod
     def forward(ctx, qh, kh, vh, group, causal: bool, steps):
-        carries = [_carries(qh.shape[1:], qh.device)
+        carries = [_carries((*qh.shape[1:-1], vh.shape[-1]), qh.device)
                    for _ in range(qh.shape[0])]
-        kv = torch.stack((kh, vh))  # (k|v, part, bh, c, d)
+        pk = _KV(kh, vh)
+        kv = pk.pack(kh, vh)
         for step, blocks in enumerate(steps):
             last = step == len(steps) - 1
             nxt, works = ([kv], []) if last else _ring_pass_start([kv], group)
             for qi, ki, qpos0, kpos0 in blocks:
                 carries[qi] = flash.block_attend(
-                    qh[qi], kv[0, ki], kv[1, ki], qpos0, kpos0, causal,
+                    qh[qi], pk.k(kv, ki), pk.v(kv, ki), qpos0, kpos0, causal,
                     *carries[qi])
             _wait(works)
             kv = nxt[0]
@@ -290,25 +318,26 @@ class _RingCore(torch.autograd.Function):
         dout = dout.float().contiguous()
         D = (dout * out).sum(-1, keepdim=True)
         dq = torch.zeros(qh.shape, dtype=torch.float32, device=qh.device)
-        dkv = torch.zeros((2, *kh.shape), dtype=torch.float32,
-                          device=kh.device)
-        kv = torch.stack((kh, vh))
+        pk = _KV(kh, vh)
+        kv = pk.pack(kh, vh)
+        dkv = torch.zeros(kv.shape, dtype=torch.float32, device=kh.device)
         for step, blocks in enumerate(steps):
             last = step == len(steps) - 1
             nxt, works = ([kv], []) if last else _ring_pass_start([kv], group)
             for qi, ki, qpos0, kpos0 in blocks:
                 dq_b, dk_b, dv_b = flash.flash_block_grads(
-                    qh[qi], kv[0, ki], kv[1, ki], lse[qi], dout[qi], D[qi],
-                    qpos0, kpos0, ctx.causal)
+                    qh[qi], pk.k(kv, ki), pk.v(kv, ki), lse[qi], dout[qi],
+                    D[qi], qpos0, kpos0, ctx.causal)
                 dq[qi] += dq_b
-                dkv[0, ki] += dk_b
-                dkv[1, ki] += dv_b
+                pk.k(dkv, ki).add_(dk_b)
+                pk.v(dkv, ki).add_(dv_b)
             # dK/dV travel with their block; the n-th rotation takes each
             # accumulator home
             (dkv,), dkv_works = _ring_pass_start([dkv], group, first_tag=1)
             _wait(works + dkv_works)
             kv = nxt[0]
-        return (dq.to(qh.dtype), dkv[0].to(kh.dtype), dkv[1].to(vh.dtype),
+        dk, dv = pk.unpack(dkv)
+        return (dq.to(qh.dtype), dk.to(kh.dtype), dv.to(vh.dtype),
                 None, None, None)
 
 
@@ -377,8 +406,9 @@ def ring_attention(q, k, v, group=None, causal: bool = True,
                    schedule: str = "contiguous"):
     """Blockwise ring attention over the sequence group ``group``: ``q``,
     ``k``, ``v`` are this rank's (batch, seq_block, heads, head_dim) blocks,
-    rank r holding block r of the sequence. Returns this rank's output
-    block, shape and dtype of ``q``/``v``. ``schedule="zigzag"`` (causal,
+    rank r holding block r of the sequence; v's head dim may be narrower
+    than q's and k's, which set the scale ``1/sqrt(d)``. Returns this rank's
+    output block, shaped as ``q`` with v's head dim, in v's dtype. ``schedule="zigzag"`` (causal,
     equal and even block lengths) balances the causal work: the blocks move
     to the zigzag layout and back around the core."""
     b, sq, h, d = q.shape
@@ -394,6 +424,7 @@ def ring_attention(q, k, v, group=None, causal: bool = True,
     elif schedule != "contiguous":
         raise ValueError(f"unknown ring schedule {schedule!r}; valid: "
                          "'contiguous', 'zigzag'")
+    dv = v.shape[-1]
     n, me = group_size(group), group_rank(group)
     scale = 1.0 / (d ** 0.5)
     qf, kf, vf = _rows(q * scale), _rows(k), _rows(v)
@@ -412,12 +443,13 @@ def ring_attention(q, k, v, group=None, causal: bool = True,
         out, _lse = _RingCore.apply(qf[None], kf[None], vf[None], group,
                                     causal, ring_schedule(me, n, sq, sk,
                                                           causal))
-    return out.reshape(b, h, sq, d).transpose(1, 2).to(v.dtype)
+    return out.reshape(b, h, sq, dv).transpose(1, 2).to(v.dtype)
 
 
 def _local_flash(q, k, v, causal: bool):
-    """Exact local attention in flash form: (b, s, h, d) in and out, q
-    scaled by 1/sqrt(d); the logits are never materialized at O(s^2). It is
+    """Exact local attention in flash form: (b, s, h, d) in, (b, s, h,
+    dv) out with dv v's head dim, q scaled by 1/sqrt(d); the logits are
+    never materialized at O(s^2). It is
     a ring of this rank alone: one block at offsets (0, 0), whose backward
     saves only ``(qf, kf, vf, out, lse)`` (twin of the JAX
     ``_local_flash_core``)."""
@@ -426,14 +458,14 @@ def _local_flash(q, k, v, causal: bool):
     out, _lse = _RingCore.apply(_rows(q * scale)[None], _rows(k)[None],
                                 _rows(v)[None], None, bool(causal),
                                 [[(0, 0, 0, 0)]])
-    return out.reshape(b, h, s, d).transpose(1, 2).to(v.dtype)
+    return out.reshape(b, h, s, v.shape[-1]).transpose(1, 2).to(v.dtype)
 
 
 def ulysses_attention(q, k, v, group=None, causal: bool = True):
     """Ulysses sequence parallelism: reshard to head-parallel, run exact
     full-sequence attention on the local heads through the flash kernels,
     reshard back. ``group`` is the sequence group (None: this rank
-    alone)."""
+    alone); v's head dim may be narrower than q's and k's."""
     q = seq_to_heads(q, group)
     k = seq_to_heads(k, group)
     v = seq_to_heads(v, group)

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from horovod_tpu_torch.ops import flash
-from horovod_tpu_torch.parallel import sequence
+from horovod_tpu_torch.parallel import moe, sequence
 
 REPO = Path(__file__).resolve().parent.parent
 LAUNCH = [sys.executable, "-m", "horovod_tpu_torch.runner.launch"]
@@ -34,17 +34,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _block(g, device, dtype, bh, sq, sk, d, qpos0, kpos0, causal):
-    """Seeded inputs whose lse and D are those of a real forward pass."""
-    q, k, v = (torch.randn((bh, n, d), generator=g).to(device, dtype)
-               for n in (sq, sk, sk))
+def _block(g, device, dtype, bh, sq, sk, d, qpos0, kpos0, causal, dv=None):
+    """Seeded inputs whose lse and D are those of a real forward pass; v
+    (and dout) ``dv`` wide, ``d`` unless given."""
+    dv = d if dv is None else dv
+    q, k, v = (torch.randn((bh, n, w), generator=g).to(device, dtype)
+               for n, w in ((sq, d), (sk, d), (sk, dv)))
     q = (q.float() / d ** 0.5).to(dtype)
     m = torch.full((bh, sq, 1), flash.NEG_INF, device=device)
     l = torch.zeros((bh, sq, 1), device=device)
-    acc = torch.zeros((bh, sq, d), device=device)
+    acc = torch.zeros((bh, sq, dv), device=device)
     m, l, acc = flash.attend_plain(q, k, v, qpos0, kpos0, causal, m, l, acc)
     l_safe = l.clamp_min(1e-30)
-    dout = torch.randn((bh, sq, d), generator=g).to(device)
+    dout = torch.randn((bh, sq, dv), generator=g).to(device)
     D = (dout * (acc / l_safe)).sum(-1, keepdim=True)
     return q, k, v, m + torch.log(l_safe), dout, D
 
@@ -80,14 +82,15 @@ ROW_LIMITS = {
 P90_LIMIT = 1e-4
 
 
+KERNEL_SHAPES = [(2, 13, 11, 3, 0), (3, 130, 200, 0, 70), (2, 64, 64, 0, 0),
+                 (1, 300, 40, 500, 0), (2, 63, 65, 0, 0), (2, 129, 127, 0, 0),
+                 (1, 2047, 2049, 0, 0), (1, 300, 40, 0, 200)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("shape", [(2, 13, 11, 3, 0), (3, 130, 200, 0, 70),
-                                   (2, 64, 64, 0, 0), (1, 300, 40, 500, 0),
-                                   (2, 63, 65, 0, 0), (2, 129, 127, 0, 0),
-                                   (1, 2047, 2049, 0, 0),
-                                   (1, 300, 40, 0, 200)])
+@pytest.mark.parametrize("shape", KERNEL_SHAPES)
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_kernels_match_plain(cuda_device, causal, d, shape, dtype, tol):
@@ -103,13 +106,28 @@ def test_cuda_kernels_match_plain(cuda_device, causal, d, shape, dtype, tol):
     wrong unseen (a dq row that sees one key: absolute, see
     ``_dq_row_errs``); bf16 dq's and dk's 90th-percentile rows within
     ``P90_LIMIT``."""
+    _kernels_match_plain(cuda_device, causal, d, d, shape, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", KERNEL_SHAPES + [(2, 1000, 1000, 0, 0)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_mla_kernels_match_plain(cuda_device, causal, shape):
+    """K1-K3 at multi-head latent attention's widths, q and k 192, v 128
+    (bf16, the one dtype they are built for), against the plain versions
+    at the same shapes and to the same limits as the equal widths."""
+    _kernels_match_plain(cuda_device, causal, 192, 128, shape,
+                         torch.bfloat16, 2e-2)
+
+
+def _kernels_match_plain(cuda_device, causal, d, dv, shape, dtype, tol):
     bh, sq, sk, qpos0, kpos0 = shape
     g = torch.Generator().manual_seed(sq * 1000 + sk)
     q, k, v, lse, dout, D = _block(g, cuda_device, dtype, bh, sq, sk, d,
-                                   qpos0, kpos0, causal)
+                                   qpos0, kpos0, causal, dv)
     m0 = torch.randn((bh, sq, 1), generator=g).to(cuda_device)
     l0 = torch.rand((bh, sq, 1), generator=g).to(cuda_device)
-    acc0 = torch.randn((bh, sq, d), generator=g).to(cuda_device)
+    acc0 = torch.randn((bh, sq, dv), generator=g).to(cuda_device)
     before = dict(flash.launches)
     (m1, l1, a1) = flash.block_attend(q, k, v, qpos0, kpos0, causal, m0, l0,
                                       acc0)
@@ -177,6 +195,116 @@ def test_cuda_wrapper_rejects_unsupported_head_dim(cuda_device):
                torch.zeros((1, 8, 1), device=cuda_device), q.clone())
     with pytest.raises(ValueError, match="head dim"):
         flash.block_attend(q, q, q, 0, 0, True, *carries)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_rejects_mla_widths_in_float32(cuda_device):
+    """The 192 / 128 instantiation is bf16 only: float32 raises."""
+    q = torch.zeros((1, 8, 192), device=cuda_device)
+    v = torch.zeros((1, 8, 128), device=cuda_device)
+    carries = (torch.zeros((1, 8, 1), device=cuda_device),
+               torch.zeros((1, 8, 1), device=cuda_device), v.clone())
+    with pytest.raises(TypeError, match="192/128"):
+        flash.block_attend(q, q, v, 0, 0, True, *carries)
+
+
+@pytest.mark.cuda
+def test_cuda_local_flash_mla_widths_match_cpu(cuda_device):
+    """``_local_flash`` with q and k 192 wide and v 128 (bf16 on the card:
+    the three kernels through the autograd Function) against the plain
+    versions on the CPU in float32 from the same bf16 values: outputs and
+    gradients within 2e-2 of the largest entry (bf16 rounding of p, ds and
+    the outputs)."""
+    g = torch.Generator().manual_seed(192)
+    b, s, h = 2, 300, 3
+    q, k = (torch.randn((b, s, h, 192), generator=g) for _ in range(2))
+    v, ct = (torch.randn((b, s, h, 128), generator=g) for _ in range(2))
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    res = []
+    for dev, dt in (("cpu", torch.float32), (cuda_device, torch.bfloat16)):
+        xs = [t.to(dev, dt).requires_grad_() for t in (q, k, v)]
+        out = sequence._local_flash(*xs, True)
+        out.float().backward(ct.to(dev))
+        res.append([out.detach().float().cpu()]
+                   + [x.grad.float().cpu() for x in xs])
+    for name, got, want in zip(("out", "dq", "dk", "dv"), res[1], res[0]):
+        err = (got - want).abs().max() / want.abs().max()
+        assert err <= 2e-2, f"{name}: {err.item():.3g}"
+
+
+def _moe_case(seed, tokens=4096, d=2048, f=1408, n_expert=64, n_held=8):
+    """Seeded inputs of the dropless layer at Moonlight's widths: bf16
+    tokens and held experts' weights, float32 router logits that send
+    nearly every token to expert 0 and none to expert 7 (the held
+    experts are 0-7), and a float32 cotangent."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((tokens, d), generator=g).bfloat16()
+    logits = torch.randn((tokens, n_expert), generator=g)
+    logits[:, 0] += 3.0
+    logits[:, 7] -= 30.0
+    w_gu = (torch.randn((n_held, 2 * f, d), generator=g) / d ** 0.5).bfloat16()
+    w_d = (torch.randn((n_held, d, f), generator=g) / f ** 0.5).bfloat16()
+    return x, logits, w_gu, w_d, torch.randn((tokens, d), generator=g)
+
+
+def _moe_grads(dev, x, logits, w_gu, w_d, ct, k=6):
+    """The layer's output and the gradients of its four inputs on
+    ``dev``."""
+    leaves = [t.detach().to(dev, copy=True).requires_grad_()
+              for t in (x, logits, w_gu, w_d)]
+    xd, ld, gu, wd = leaves
+    idx, w, _ = moe.route_sigmoid_top_k(
+        ld, torch.zeros(ld.shape[-1], device=dev), k, 2.446)
+    y = moe.held_experts(xd, idx, w, gu, wd, 0)
+    y.float().backward(ct.to(dev))
+    return [y.detach().float().cpu()] + [t.grad.float().cpu()
+                                         for t in leaves]
+
+
+@pytest.mark.cuda
+def test_cuda_held_experts_match_cpu(cuda_device):
+    """The dropless layer on the card (``torch._grouped_mm`` over the
+    expert-sorted rows, bf16) against the same call on the CPU (its
+    grouped GEMM, bf16), under forced imbalance: expert 0 takes nearly
+    every token, expert 7 none. Output and the gradients of the tokens,
+    the router logits and both expert weights within 2e-2 of the largest
+    entry: bf16 products summed in another order."""
+    case = _moe_case(1)
+    want = _moe_grads("cpu", *case)
+    got = _moe_grads(cuda_device, *case)
+    for name, a, b in zip(("y", "dx", "dlogits", "dw_gate_up", "dw_down"),
+                          got, want):
+        err = (a - b).abs().max() / b.abs().max()
+        assert err <= 2e-2, f"{name}: {err.item():.3g}"
+    assert want[3][7].abs().max() == 0  # the expert no token picked
+
+
+@pytest.mark.cuda
+def test_cuda_held_experts_make_no_host_sync(cuda_device):
+    """Routing, the sort, the offsets, the grouped GEMMs, the combine and
+    the whole backward run with the card's sync debug mode at "error":
+    nothing in the layer waits for the device, and the row tally stays on
+    it."""
+    case = _moe_case(2, tokens=2048)
+    _moe_grads(cuda_device, *case)  # warm: first calls may load libraries
+    leaves = [t.to(cuda_device, copy=True).requires_grad_()
+              for t in case[:4]]
+    bias = torch.zeros(64, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx, w, _ = moe.route_sigmoid_top_k(leaves[1], bias, 6, 2.446)
+        y = moe.held_experts(leaves[0], idx, w, leaves[2], leaves[3], 0,
+                             layer="sync-check")
+        y.float().backward(torch.ones_like(y, dtype=torch.float32))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    from horovod_tpu_torch import metrics
+    metrics.snapshot()
+    rows = {dict(k)["expert"]: v for k, v in
+            metrics.MOE_EXPERT_ROWS.series().items()
+            if dict(k)["layer"] == "sync-check"}
+    assert sum(rows.values()) == (idx < 8).sum().item()
 
 
 @pytest.mark.cuda

@@ -166,3 +166,45 @@ def test_local_flash_forward_and_gradients(causal):
     for name, j, t in zip("qkv", grads_j, (qt, kt, vt)):
         np.testing.assert_allclose(t.grad.numpy(), _np(j), rtol=1e-4,
                                    atol=1e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,dv", [(8, 8), (192, 128)])
+def test_plain_path_at_head_widths_matches_jnp(d, dv, causal):
+    """The port's plain block update and block gradients with v as wide
+    as q and k, or narrower (multi-head latent attention's q/k 192, v 128),
+    against the JAX package's jnp twins (``_attend_jnp``,
+    ``jnp_block_grads``; its Pallas kernels take one width), at an offset
+    ragged block; float32, rtol = atol = 1e-5 (the same sums in another
+    order)."""
+    rng = np.random.default_rng(d * 7 + dv)
+    sq, sk, qpos0, kpos0 = 13, 11, 3, 0
+    q = rng.standard_normal((2, sq, d)).astype(np.float32) / d ** 0.5
+    k = rng.standard_normal((2, sk, d)).astype(np.float32)
+    v = rng.standard_normal((2, sk, dv)).astype(np.float32)
+    m, l, acc = _carries(2, sq, dv)
+    got_j = jflash._attend_jnp(
+        *(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(qpos0, jnp.int32),
+        jnp.asarray(kpos0, jnp.int32), causal,
+        *(jnp.asarray(x) for x in (m, l, acc)))
+    got_t = tflash.block_attend(
+        *(torch.from_numpy(x) for x in (q, k, v)), qpos0, kpos0, causal,
+        *(torch.from_numpy(x) for x in (m, l, acc)))
+    for name, j, t in zip(("m", "l", "acc"), got_j, got_t):
+        assert t.shape == j.shape, name
+        np.testing.assert_allclose(t.numpy(), _np(j), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+    ls = np.maximum(_np(got_j[1]), 1e-30)
+    lse = _np(got_j[0]) + np.log(ls)
+    dout = rng.standard_normal((2, sq, dv)).astype(np.float32)
+    D = np.sum(dout * _np(got_j[2]) / ls, -1, keepdims=True)
+    inputs = (q, k, v, lse, dout, D)
+    want = jflash.jnp_block_grads(
+        *(jnp.asarray(x) for x in inputs), jnp.asarray(qpos0, jnp.int32),
+        jnp.asarray(kpos0, jnp.int32), causal)
+    got = tflash.flash_block_grads(
+        *(torch.from_numpy(x) for x in inputs), qpos0, kpos0, causal)
+    for name, j, t, width in zip(("dq", "dk", "dv"), want, got, (d, d, dv)):
+        assert t.shape[-1] == width, name
+        np.testing.assert_allclose(t.numpy(), _np(j), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)

@@ -104,3 +104,42 @@ def test_timeline_holds_the_sync_and_issue_ranges(trainer, tmp_path):
     assert got[("optimizer", "OPTIMIZER_STEP", "B")] == 1
     issues = got[("pipeline", "PIPELINE_ISSUE", "B")]
     assert issues >= n and got[("pipeline", "PIPELINE_ISSUE", "E")] == issues
+
+
+def test_expert_layer_spans_and_row_counters():
+    """The dropless expert layer under the profiler: its route, its
+    grouped GEMMs and its combine as ``hvd.ROUTE.moe``, ``hvd.EXPERTS.moe``
+    and ``hvd.COMBINE.moe`` (forward: one each; backward: the GEMMs run
+    again and then their gradients, the combine's weights' gradient and
+    then the tokens'), and its device tally in ``metrics_dump()``: each
+    held expert's rows of a seeded routing, and the largest over the
+    mean."""
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.parallel import moe
+    g = torch.Generator().manual_seed(7)
+    tokens, d, f = 30, 16, 8
+    x = torch.randn((tokens, d), generator=g).requires_grad_()
+    idx, w, _ = moe.route_sigmoid_top_k(torch.randn((tokens, 8), generator=g),
+                                        torch.zeros(8), 2)
+    gu = torch.randn((4, 2 * f, d), generator=g).requires_grad_()
+    dn = torch.randn((4, d, f), generator=g).requires_grad_()
+    metrics.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        moe.held_experts(x, idx, w, gu, dn, 4, layer="blocks.1").sum() \
+            .backward()
+    spans = collections.Counter(e.name for e in prof.events()
+                                if e.name.endswith(".moe"))
+    assert spans == {"hvd.ROUTE.moe": 1, "hvd.EXPERTS.moe": 3,
+                     "hvd.COMBINE.moe": 3}
+    dump = thvd.metrics_dump()
+    rows = {s["labels"]["expert"]: s["value"]
+            for s in dump["hvd_moe_expert_rows_total"]["series"]
+            if s["labels"]["layer"] == "blocks.1"}
+    want = {str(e): float((idx == e).sum()) for e in range(4, 8)}
+    assert rows == want and sum(want.values()) > 0
+    imb = [s["value"] for s in dump["hvd_moe_expert_imbalance"]["series"]
+           if s["labels"]["layer"] == "blocks.1"]
+    assert imb == [pytest.approx(max(want.values()) * 4
+                                 / sum(want.values()))]
+    metrics.reset()
